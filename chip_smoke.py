@@ -2,23 +2,37 @@
 """On-card smoke test of mugiq_tpu_torch, the PyTorch/CUDA port.
 
     python3 chip_smoke.py                 # all phases, one CUDA device
+    python3 chip_smoke.py --phases build,parity   # a subset, in this order
 
 Phases (each prints its own lines and raises on failure):
-  1. the card (nvidia-smi name and power limit), torch and nvcc versions,
-     the kernels' build from the sources in this checkout;
-  2. each CUDA kernel against its plain PyTorch twin on the card at the
-     flagship shapes (32^3x64): max error against a stated tolerance, and
-     kernel / twin times from CUDA events (median after warm-up);
-  3. the slice end to end at 8^3x16: through the kernels on the card
-     against the same slice through the twins on the CPU;
-  4. the flagship 32^3x64 loop through the CLI (mugiq_tpu_torch.cli.loop),
-     with the launch counters of the three kernels set to 0 just before and
-     read just after.
-The last two lines are {"kernels": [...]} and
-{"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
-repository, it exits nonzero and prints no result.
+  build     the card (nvidia-smi name and power limit), torch and nvcc
+            versions, the kernels' build from the sources in this checkout
+            (one nvcc per source, all started together);
+  kernels   K1-K3 against their plain PyTorch twins on the card at the
+            flagship shapes (32^3x64): max error against a stated
+            tolerance, kernel / twin times from CUDA events (median after
+            warm-up), and each kernel's least-time bound;
+  parity    K6 against its twin at 32^3x64 in every variant (pass 1 with
+            and without A_post, pass 2 with and without A_comb, M and M^dag,
+            f32 and bf16 links), with times and bounds;
+  identity  K6 tied to K1 at 32^3x64: M_pc psi_e equals the even half of
+            K1(psi_e, psi_o) with psi_o = A_oo^-1 kappa D_oe psi_e, whose
+            odd half vanishes (Wilson and clover, M and M^dag);
+  slice     the loop slice at 8^3x16 through the kernels on the card
+            against the same slice through the twins on the CPU;
+  pc-slice  the even-odd preconditioned eigensolve at 8^3x16, likewise;
+  flagship  the flagship 32^3x64 loop through the CLI
+            (mugiq_tpu_torch.cli.loop);
+  pc-flagship  the flagship 32^3x64 pc eigensolve through the CLI
+            (mugiq_tpu_torch.cli.eigensolve --solve-type direct-pc).
+Each of the two flagships is a main path: every launch counter is set to 0
+just before it and read just after.  The last two lines are
+{"kernels": [...]} and {"ok": true, "device": {...}}.  Without CUDA, or
+outside a checkout of the repository, it exits nonzero and prints no
+result.
 """
 
+import argparse
 import json
 import logging
 import os
@@ -40,21 +54,45 @@ FLAGSHIP_ARGS = [
 FLAGSHIP_MOMENTA = "0 0 0\n1 0 0\n0 1 1\n"
 MAX_RESIDUAL = 1e-3          # the TPU run of this invocation reached 2.8e-5
 
+# The same lattice, gauge and eigensolver recipe, eigensolving the packed
+# even-odd preconditioned MdagM.  The Chebyshev window's lower edge
+# belongs to the pc spectrum, not to the loop's 0.25: on this gauge the
+# eight lowest pc eigenvalues lie in [0.4429, 0.4439], so 0.5 sits 13%
+# above them (PERF.md says how they were measured).
+PC_FLAGSHIP_ARGS = [
+    "--dims", "32", "32", "32", "64", "--gauge", "random", "--gauge-seed", "1",
+    "--kappa", "0.12", "--eig-nev", "8", "--eig-nkr", "24",
+    "--eig-tol", "1e-5", "--eig-max-restarts", "30", "--eig-use-poly-acc",
+    "--eig-poly-deg", "16", "--eig-amin", "0.5", "--solve-type", "direct-pc",
+    "--production"]
+PC_SLICE_AMIN = 0.2
+
 # kernel vs twin: max |kernel - twin| / max |twin|.  Both run in f32 with
-# the same inputs and differ only in summation order (K1: half-spinor vs
-# full projector form, ~100 terms per output; K2: n*3 terms; K3: 3 terms).
-TOL = {"wilson_m": 2e-5, "loop_contract": 2e-5, "covariant_displace": 1e-5}
+# the same inputs and differ only in summation order (K1, K6: half-spinor
+# vs full projector form, ~100 terms per output; K2: n*3 terms; K3: 3).
+TOL = {"wilson_m": 2e-5, "loop_contract": 2e-5, "covariant_displace": 1e-5,
+       "parity_hop": 2e-5, "identity": 1e-5}
 
 TPU_KERNEL = {
     "wilson_m": "mugiq_tpu/pallas/dslash_kernel.py:395",
     "loop_contract": "mugiq_tpu/pallas/contract_kernel.py:99",
     "covariant_displace": "mugiq_tpu/pallas/contract_kernel.py:192",
+    "parity_hop": "mugiq_tpu/pallas/schur_kernel.py:350",
 }
 SOURCE = {
     "wilson_m": "mugiq_tpu_torch/kernels/csrc/wilson_m.cu",
     "loop_contract": "mugiq_tpu_torch/kernels/csrc/contract.cu",
     "covariant_displace": "mugiq_tpu_torch/kernels/csrc/contract.cu",
+    "parity_hop": "mugiq_tpu_torch/kernels/csrc/parity_hop.cu",
 }
+
+# T, Z, Y, X of the kernel-vs-twin phases: the flagships' lattice
+KERNEL_SHAPE = (64, 32, 32, 32)
+
+# The least time the card could take (on-chip-measurement guide, H100 SXM
+# data sheet): HBM 3.35 TB/s; float32 outside the tensor cores 67 TFLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def say(msg):
@@ -87,6 +125,19 @@ def cuda_ms(fn, reps, warmup=2):
     return ts[len(ts) // 2]
 
 
+def bound(nbytes, flops):
+    """Least time in ms: each input read once and each output written once
+    at the HBM rate, or the f32 operations at the f32 peak, the larger."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    f_ms = flops / F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(b_ms, f_ms),
+            "bound_by": "bytes" if b_ms >= f_ms else "operations"}
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
 def compare(name, got, ref):
     import torch
     torch.cuda.synchronize()
@@ -108,13 +159,15 @@ def phase_build():
     nv = subprocess.run([build.nvcc_path(), "--version"], capture_output=True,
                         text=True, check=True).stdout.strip().splitlines()[-1]
     say(f"nvcc: {nv}")
-    for name in ("wilson_m", "contract"):
-        t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    build.build_all()
+    say(f"build {', '.join(n + '.cu' for n in build.sources())} (parallel "
+        f"nvcc): {time.perf_counter() - t0:.2f} s")
+    for name in build.sources():
         build.load(name)
-        say(f"build {name}.cu: {time.perf_counter() - t0:.2f} s")
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
-                say(f"  ptxas: {line.strip()}")
+                say(f"  ptxas {name}: {line.strip()}")
 
 
 def phase_kernels(dev, stats):
@@ -135,7 +188,7 @@ def phase_kernels(dev, stats):
         f"(read + write)")
     del src, dst
 
-    T, Z, Y, X = 64, 32, 32, 32
+    T, Z, Y, X = KERNEL_SHAPE
     g = torch.Generator(device=dev).manual_seed(0)
     psi = torch.randn((T, 24, Z, Y * X), generator=g, device=dev)
     U = torch.randn((T, 4, 18, Z, Y * X), generator=g, device=dev) * 0.5
@@ -158,17 +211,22 @@ def phase_kernels(dev, stats):
                                                      dagger, Y), 5, 1)
                 vol = T * Z * Y * X
                 # least traffic: psi in + out (96 + 96 B), 4 local links
-                # (72 words), clover (144 words) per site
-                wb = 2 if prec == "bf16" else 4
-                nbytes = vol * (192 + 72 * wb + (144 * wb if clover else 0))
-                share = nbytes / (stats["copy_GBps"] * 1e6) / ms
+                # (72 words), clover (144 words) per site; clover adds
+                # 2 x 6 x 6 complex multiply-adds per site
+                moved = nbytes(psi, Ul, A144, got)
+                b = bound(moved, (FLOP_PER_SITE + (576 if clover else 0))
+                          * vol)
                 say(f"K1 wilson_m {prec} clover={int(clover)} "
                     f"dagger={int(dagger)}: rel err {rel:.2e} (abs {err:.2e},"
                     f" tol {TOL['wilson_m']:.0e})  kernel {ms:.3f} ms "
-                    f"({FLOP_PER_SITE * vol / ms / 1e6:.0f} GFLOP/s hop-equivalent, "
-                    f"{share:.2f} of copy roofline)  twin {pms:.3f} ms")
+                    f"({FLOP_PER_SITE * vol / ms / 1e6:.0f} GFLOP/s "
+                    f"hop-equivalent; bound {b['bound_ms']:.3f} ms by "
+                    f"{b['bound_by']}, {b['bound_ms'] / ms:.2f} of it; "
+                    f"{moved / (stats['copy_GBps'] * 1e6) / ms:.2f} of copy "
+                    f"roofline)  twin {pms:.3f} ms")
                 if (prec, clover, dagger) == ("f32", False, False):
-                    stats["wilson_m"] = {"ms": ms, "plain_ms": pms}
+                    stats["wilson_m"] = {"ms": ms, "plain_ms": pms,
+                                         "library_ms": None, **b}
                 del ref, got
     stats["wilson_m"]["max_abs_err"] = worst[1]
 
@@ -181,9 +239,14 @@ def phase_kernels(dev, stats):
     err, rel = compare("loop_contract", got, ref)
     ms = cuda_ms(lambda: loop_contract(L, R, w), 20)
     pms = cuda_ms(lambda: loop_contract_plain(L, R, w), 5, 1)
+    # 16 spin pairs x 3 colours of complex multiply-adds per site and evec
+    b = bound(nbytes(L, R, w, got), n * T * Z * Y * X * 16 * 3 * 8)
     say(f"K2 loop_contract n={n}: rel err {rel:.2e} (abs {err:.2e}, tol "
-        f"{TOL['loop_contract']:.0e})  kernel {ms:.3f} ms  twin {pms:.3f} ms")
-    stats["loop_contract"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+        f"{TOL['loop_contract']:.0e})  kernel {ms:.3f} ms (bound "
+        f"{b['bound_ms']:.3f} ms by {b['bound_by']}, "
+        f"{b['bound_ms'] / ms:.2f} of it)  twin {pms:.3f} ms")
+    stats["loop_contract"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
+                              "library_ms": None, **b}
     del ref, got, R
 
     worst = (0.0, 0.0)
@@ -200,10 +263,13 @@ def phase_kernels(dev, stats):
     out = torch.empty_like(L)
     ms = cuda_ms(lambda: covariant_displace(L, U, 2, 1, Y, out=out), 20)
     pms = cuda_ms(lambda: covariant_displace_plain(L, U, 2, 1, Y), 5, 1)
-    say(f"K3 covariant_displace +z n={n}: kernel {ms:.3f} ms  "
-        f"twin {pms:.3f} ms")
+    # reads the mu = z links only; 4 spins of a 3x3 complex matvec per site
+    b = bound(nbytes(L, out) + nbytes(U) // 4, n * T * Z * Y * X * 4 * 72)
+    say(f"K3 covariant_displace +z n={n}: kernel {ms:.3f} ms (bound "
+        f"{b['bound_ms']:.3f} ms by {b['bound_by']}, "
+        f"{b['bound_ms'] / ms:.2f} of it)  twin {pms:.3f} ms")
     stats["covariant_displace"] = {"max_abs_err": worst[1], "ms": ms,
-                                   "plain_ms": pms}
+                                   "plain_ms": pms, "library_ms": None, **b}
 
 
 def phase_slice(dev):
@@ -247,27 +313,199 @@ def phase_slice(dev):
         raise AssertionError("slice through kernels disagrees with twins")
 
 
-def phase_flagship(counters):
+def phase_parity(dev, stats):
+    """K6 against its twin on the card at 32^3x64, every variant."""
+    import torch
+    from mugiq_tpu_torch.kernels.parity import parity_hop, parity_hop_plain
+    from mugiq_tpu_torch.kernels.wilson import FLOP_PER_SITE
+
+    T, Z, Y, X = KERNEL_SHAPE
+    Xh = X // 2
+    sites = T * Z * Y * Xh
+    g = torch.Generator(device=dev).manual_seed(1)
+    psi = torch.randn((T, 24, Z, Y * Xh), generator=g, device=dev)
+    pe = torch.randn((T, 24, Z, Y * Xh), generator=g, device=dev)
+    Uo = torch.randn((T, 4, 18, Z, Y * Xh), generator=g, device=dev) * 0.5
+    Ui = torch.randn((T, 4, 18, Z, Y * Xh), generator=g, device=dev) * 0.5
+    A = torch.randn((T, 144, Z, Y * Xh), generator=g, device=dev) * 0.2
+    k2 = 0.12 ** 2
+    worst = (0.0, 0.0)
+    for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        Uol, Uil, Al = Uo.to(dt), Ui.to(dt), A.to(dt)
+        variants = (("pass1", {}), ("pass1+A_post", dict(A_post=Al)),
+                    ("pass2", dict(kappa2=k2, psi_out=pe)),
+                    ("pass2+A_comb", dict(kappa2=k2, psi_out=pe, A_comb=Al)))
+        for tag, kw in variants:
+            for dagger in (False, True):
+                # pass 1 writes the odd parity, pass 2 the even one
+                po = 1 if tag.startswith("pass1") else 0
+                ref = parity_hop_plain(psi, Uol, Uil, Y, po, dagger, **kw)
+                got = parity_hop(psi, Uol, Uil, Y, po, dagger, **kw)
+                err, rel = compare("parity_hop", got, ref)
+                worst = max(worst, (rel, err))
+                del ref
+                out = torch.empty_like(psi)
+                ms = cuda_ms(lambda: parity_hop(psi, Uol, Uil, Y, po, dagger,
+                                                out=out, **kw), 20)
+                pms = cuda_ms(lambda: parity_hop_plain(psi, Uol, Uil, Y, po,
+                                                       dagger, **kw), 3, 1)
+                clover = "A_post" in kw or "A_comb" in kw
+                moved = nbytes(psi, Uol, Uil, got, kw.get("psi_out"),
+                               kw.get("A_post"), kw.get("A_comb"))
+                b = bound(moved, (FLOP_PER_SITE + (576 if clover else 0))
+                          * sites)
+                say(f"K6 parity_hop {prec} {tag} dagger={int(dagger)}: "
+                    f"rel err {rel:.2e} (abs {err:.2e}, tol "
+                    f"{TOL['parity_hop']:.0e})  kernel {ms:.3f} ms (bound "
+                    f"{b['bound_ms']:.3f} ms by {b['bound_by']}, "
+                    f"{b['bound_ms'] / ms:.2f} of it; "
+                    f"{moved / (stats['copy_GBps'] * 1e6) / ms:.2f} of copy "
+                    f"roofline)  twin {pms:.3f} ms")
+                if (prec, tag, dagger) == ("f32", "pass1", False):
+                    stats["parity_hop"] = {"ms": ms, "plain_ms": pms,
+                                           "library_ms": None, **b}
+                del got, out
+                torch.cuda.empty_cache()
+    stats["parity_hop"]["max_abs_err"] = worst[1]
+
+
+def phase_identity(dev):
+    """K6 tied to K1 at 32^3x64: two independent codes, one operator."""
+    import torch
+    from mugiq_tpu_torch.dirac_kernel import WilsonDiracKernel
+    from mugiq_tpu_torch.kernels.wilson import clover_apply_plain
+    from mugiq_tpu_torch.schur_kernel import (SchurDiracKernelPacked,
+                                              pack_parity, unpack_parities)
+
+    T, Z, Y, X = KERNEL_SHAPE
+    kappa = 0.12
+    g = torch.Generator(device=dev).manual_seed(2)
+    U = torch.randn((T, 4, 18, Z, Y * X), generator=g, device=dev) * 0.5
+    # invertible chiral blocks: 1 + 0.1 * noise (the inverse is taken on
+    # the host by SchurDiracKernelPacked)
+    blocks = torch.randn((T, 2, 6, 6, 2, Z, Y * X), generator=g,
+                         device=dev) * 0.1
+    blocks[:, :, range(6), range(6), 0] += 1.0
+    pe = None
+    for clover in (False, True):
+        A = blocks if clover else None
+        full = WilsonDiracKernel(U, kappa, Y, A_blocks=A)
+        pc = SchurDiracKernelPacked(U, kappa, Y, A_blocks=A)
+        if pe is None:
+            pe = torch.randn(pc.field_shape, generator=g, device=dev)
+        for dagger in (False, True):
+            k1 = full.Mdag if dagger else full.M
+            # the odd half of K1(psi_e, 0) is -kappa D_oe psi_e
+            psi_o = -pack_parity(k1(unpack_parities(pe, torch.zeros_like(pe),
+                                                    Y)), Y, 1)
+            if clover:
+                psi_o = clover_apply_plain(pc.Ainv_o, psi_o)
+            r = k1(unpack_parities(pe, psi_o, Y))
+            mpc = (pc.Mdag if dagger else pc.M)(pe)
+            torch.cuda.synchronize()
+            scale = float(mpc.abs().max())
+            even = float((pack_parity(r, Y, 0) - mpc).abs().max()) / scale
+            odd = float(pack_parity(r, Y, 1).abs().max()) / scale
+            say(f"identity K6 vs K1 clover={int(clover)} dagger={int(dagger)}"
+                f": even half rel {even:.2e}, odd half rel {odd:.2e} (tol "
+                f"{TOL['identity']:.0e})")
+            if not (even <= TOL["identity"] and odd <= TOL["identity"]):
+                raise AssertionError("K6 disagrees with K1")
+            del psi_o, r, mpc
+        del full, pc
+        torch.cuda.empty_cache()
+
+
+def phase_pc_slice(dev):
+    """The pc eigensolve at 8^3x16 through K6 (card) vs its twin (CPU)."""
     import numpy as np
-    from mugiq_tpu_torch.cli import loop as cli_loop
+    from mugiq_tpu_torch.io.gauge_io import load_gauge_np
+    from mugiq_tpu_torch.lattice import LatticeGeometry
+    from mugiq_tpu_torch.params import EigParam, GaugeParam, InvertParam
+    from mugiq_tpu_torch.production import compute_evecs_production
+
+    geom = LatticeGeometry((8, 8, 8, 16))
+    U = load_gauge_np("weak:0.5", geom, seed=1)
+    gp = GaugeParam(dims=geom.dims)
+    ip = InvertParam(kappa=0.13)
+    # the pc spectrum starts 0.16193 0.16233 0.16259 0.16273 | 0.16374
+    ep = EigParam(n_ev=4, n_kr=24, tol=1e-6, max_restarts=100,
+                  use_poly_acc=True, poly_deg=12, a_min=PC_SLICE_AMIN)
+    out = {}
+    for name, d in (("kernels", dev), ("twins", "cpu")):
+        t0 = time.perf_counter()
+        res, evals, _, resids = compute_evecs_production(
+            U, gp, ip, ep, even_odd=True, device=d)
+        out[name] = evals
+        say(f"pc slice 8^3x16 via {name} on {d}: "
+            f"{time.perf_counter() - t0:.2f} s, converged={res.converged} "
+            f"restarts={res.n_restarts} max resid {max(resids):.2e}")
+        if not res.converged:
+            raise AssertionError(f"pc slice via {name} did not converge")
+    # both converged to tol 1e-6 relative
+    ev_rel = float(np.max(np.abs(out["kernels"] - out["twins"])
+                          / out["twins"]))
+    say(f"pc slice kernels vs twins: evals rel {ev_rel:.2e} (tol 1e-5)")
+    if not ev_rel < 1e-5:
+        raise AssertionError("pc slice through the kernels disagrees with "
+                             "the twins")
+
+
+def run_main_path(name, run, argv, counters):
+    """Drive one main path through its CLI's run(argv) with every launch
+    counter set to 0 just before and read just after; returns (result,
+    wall s, PROFILE phases, launches)."""
     from mugiq_tpu_torch.utils import reset_profile
 
-    have_h5 = True
-    try:
-        import h5py  # noqa: F401
-    except ImportError:
-        have_h5 = False
     msgs = []
 
     class Keep(logging.Handler):
         def emit(self, record):
             msgs.append(record.getMessage())
 
-    tmp = tempfile.mkdtemp(prefix="mugiq_smoke_",
-                           dir=os.path.dirname(os.path.abspath(__file__)))
     handler = Keep()
     logger = logging.getLogger("mugiq_tpu_torch")
     logger.addHandler(handler)
+    try:
+        reset_profile()
+        for k in counters:
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = run(argv)
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in counters}
+    finally:
+        logger.removeHandler(handler)
+    phases = {k: float(v) for k, v in re.findall(
+        r"PROFILE\s+([\w-]+):\s+([0-9.]+)s", "\n".join(msgs))}
+    say(f"{name}: wall {wall:.2f} s, phases {json.dumps(phases)}")
+    say(f"{name}: launches {json.dumps(launches)}")
+    return res, wall, phases, launches
+
+
+def check_eigs(name, evals, resids, sigma):
+    for i, (lam, r, s) in enumerate(zip(evals, resids, sigma)):
+        say(f"{name}: eval[{i}] {lam:+.10e} resid {r:.3e} sigma {s:.8e}")
+    import numpy as np
+    if not all(np.isfinite(np.asarray(x)).all()
+               for x in (evals, resids, sigma)):
+        raise AssertionError(f"{name}: non-finite eigenpairs")
+    if max(resids) >= MAX_RESIDUAL:
+        raise AssertionError(f"{name} max residual {max(resids):.3e} >= "
+                             f"{MAX_RESIDUAL}")
+
+
+def phase_flagship(counters):
+    import numpy as np
+    from mugiq_tpu_torch.cli import loop as cli_loop
+
+    have_h5 = True
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        have_h5 = False
+    tmp = tempfile.mkdtemp(prefix="mugiq_smoke_",
+                           dir=os.path.dirname(os.path.abspath(__file__)))
     try:
         mom = os.path.join(tmp, "moms.txt")
         with open(mom, "w") as f:
@@ -282,13 +520,8 @@ def phase_flagship(counters):
                 "skipped and data_mom is checked in memory")
         say("flagship CLI: python -m mugiq_tpu_torch.cli.loop "
             + " ".join(argv))
-        reset_profile()
-        for k in counters:
-            k.launches = 0
-        t0 = time.perf_counter()
-        res = cli_loop.run(argv)
-        wall = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in counters}
+        res, _, _, launches = run_main_path("flagship", cli_loop.run, argv,
+                                            counters)
         if have_h5:
             import h5py
             with h5py.File(h5, "r") as f:
@@ -296,32 +529,53 @@ def phase_flagship(counters):
             if d.shape != (64, 2) or not np.isfinite(d).all():
                 raise AssertionError(f"HDF5 loop data bad: {d.shape}")
     finally:
-        logger.removeHandler(handler)
         shutil.rmtree(tmp, ignore_errors=True)
 
-    phases = {k: float(v) for k, v in re.findall(
-        r"PROFILE\s+([\w-]+):\s+([0-9.]+)s", "\n".join(msgs))}
-    say(f"flagship: wall {wall:.2f} s, phases {json.dumps(phases)}")
     say(f"flagship: converged={res.converged} restarts={res.n_restarts}")
-    for i, (lam, r, s) in enumerate(zip(res.evals, res.resids, res.sigma)):
-        say(f"flagship: eval[{i}] {lam:+.10e} resid {r:.3e} sigma {s:.8e}")
-    say(f"flagship: launches {json.dumps(launches)}")
-    finite = all(np.isfinite(x).all() for x in
-                 (res.evals, res.resids, res.sigma, res.data_mom))
-    if res.data_mom.shape != (3, 2, 16, 64) or not finite:
-        raise AssertionError(f"flagship outputs: shape {res.data_mom.shape}"
-                             f" finite={finite}")
-    if max(res.resids) >= MAX_RESIDUAL:
-        raise AssertionError(f"flagship max residual {max(res.resids):.3e} "
-                             f">= {MAX_RESIDUAL}")
-    for name, n in launches.items():
-        if n <= 0:
+    check_eigs("flagship", res.evals, res.resids, res.sigma)
+    if res.data_mom.shape != (3, 2, 16, 64) or not np.isfinite(
+            res.data_mom).all():
+        raise AssertionError(f"flagship data_mom: shape {res.data_mom.shape}"
+                             f" or not finite")
+    for name in ("wilson_m", "loop_contract", "covariant_displace"):
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"flagship run")
     return launches
 
 
-def main():
+def phase_pc_flagship(counters):
+    from mugiq_tpu_torch.cli import eigensolve as cli_eig
+
+    argv = PC_FLAGSHIP_ARGS
+    say("pc flagship CLI: python -m mugiq_tpu_torch.cli.eigensolve "
+        + " ".join(argv))
+    (res, evals, sigma, resids), _, _, launches = run_main_path(
+        "pc flagship", cli_eig.run, argv, counters)
+    say(f"pc flagship: converged={res.converged} restarts={res.n_restarts} "
+        f"evecs {tuple(res.evecs.shape)}")
+    check_eigs("pc flagship", evals, resids, sigma)
+    if tuple(res.evecs.shape) != (8, 64, 24, 32, 512):
+        raise AssertionError(f"pc flagship evecs shape {res.evecs.shape}")
+    if launches["parity_hop"] <= 0:
+        raise AssertionError("K6 was not launched by the pc flagship run")
+    if launches["wilson_m"] != 0:
+        raise AssertionError("the pc path launched the full operator K1")
+    return launches
+
+
+PHASES = ("build", "kernels", "parity", "identity", "slice", "pc-slice",
+          "flagship", "pc-flagship")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
+    phases = ap.parse_args(argv).phases.split(",")
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -335,21 +589,45 @@ def main():
     import mugiq_tpu_torch  # noqa: F401  (pins full-f32 GEMMs)
     from mugiq_tpu_torch.kernels.contract import (covariant_displace,
                                                   loop_contract)
+    from mugiq_tpu_torch.kernels.parity import parity_hop
     from mugiq_tpu_torch.kernels.wilson import wilson_m
 
+    counters = [wilson_m, loop_contract, covariant_displace, parity_hop]
     dev = torch.device("cuda")
     stats = {}
+    launches = {}
     t0 = time.perf_counter()
-    phase_build()
-    phase_kernels(dev, stats)
-    phase_slice(dev)
-    launches = phase_flagship([wilson_m, loop_contract, covariant_displace])
-    say(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
+    for phase in phases:
+        tp = time.perf_counter()
+        if phase == "build":
+            phase_build()
+        elif phase == "kernels":
+            phase_kernels(dev, stats)
+        elif phase == "parity":
+            if "copy_GBps" not in stats:
+                phase_kernels(dev, stats)
+            phase_parity(dev, stats)
+        elif phase == "identity":
+            phase_identity(dev)
+        elif phase == "slice":
+            phase_slice(dev)
+        elif phase == "pc-slice":
+            phase_pc_slice(dev)
+        elif phase == "flagship":
+            got = phase_flagship(counters)
+            for k in ("wilson_m", "loop_contract", "covariant_displace"):
+                launches[k] = got[k]
+        else:
+            launches["parity_hop"] = phase_pc_flagship(counters)["parity_hop"]
+        torch.cuda.empty_cache()
+        say(f"phase {phase}: {time.perf_counter() - tp:.1f} s")
+    say(f"chip_smoke: phases {','.join(phases)} passed in "
+        f"{time.perf_counter() - t0:.1f} s")
     say(card_line())
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE[k],
          "replaces": TPU_KERNEL[k], "launches": launches[k], **stats[k]}
-        for k in TPU_KERNEL]}))
+        for k in TPU_KERNEL if k in stats and k in launches]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

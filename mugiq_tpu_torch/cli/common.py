@@ -1,5 +1,5 @@
 """Shared CLI flags (port of the flags mugiq_tpu.cli.common gives the
-production loop), plus --device."""
+production loop and the eigensolve), plus --device."""
 
 import argparse
 
@@ -32,6 +32,10 @@ def add_dirac_args(p: argparse.ArgumentParser):
     g.add_argument("--anisotropy", type=float, default=1.0)
     g.add_argument("--mass-normalization", choices=["kappa", "mass"],
                    default="kappa")
+    g.add_argument("--solve-type", choices=["direct", "direct-pc"],
+                   default="direct",
+                   help="direct-pc eigensolves the even-odd preconditioned "
+                        "operator (QUDA_DIRECT_PC_SOLVE analog)")
 
 
 def add_eig_args(p: argparse.ArgumentParser):
@@ -48,6 +52,16 @@ def add_eig_args(p: argparse.ArgumentParser):
     g.add_argument("--eig-amin", type=float, default=0.1)
     g.add_argument("--eig-amax", type=float, default=0.0,
                    help="0 = auto-estimate")
+    g.add_argument("--eig-seed", type=int, default=1234,
+                   help="seed of the eigensolver's start vector")
+    g.add_argument("--eig-block-size", type=int, default=1,
+                   help="block thick-restart Lanczos block size (>1 is not "
+                        "ported yet)")
+    g.add_argument("--eig-vec-outfile", default="",
+                   help="save eigenvectors/values (HDF5)")
+    g.add_argument("--eig-vec-infile", default="",
+                   help="load eigenvectors/values instead of solving "
+                        "(checkpoint resume)")
 
 
 def build_params(args):
@@ -69,7 +83,8 @@ def build_params(args):
                   operator=EigOperator[args.eig_operator],
                   use_poly_acc=args.eig_use_poly_acc,
                   poly_deg=args.eig_poly_deg, a_min=args.eig_amin,
-                  a_max=args.eig_amax)
+                  a_max=args.eig_amax, seed=args.eig_seed,
+                  block_size=args.eig_block_size)
     return gp, ip, ep
 
 

@@ -1,0 +1,131 @@
+"""Eigensolve CLI on the GPU — the production branch of
+mugiq_tpu.cli.eigensolve (the tests/eigensolve.cpp driver analog).
+
+    python -m mugiq_tpu_torch.cli.eigensolve --dims 32 32 32 64 \
+        --gauge random --gauge-seed 1 --kappa 0.12 --eig-nev 8 \
+        --eig-nkr 24 --eig-tol 1e-5 --eig-max-restarts 30 \
+        --eig-use-poly-acc --eig-poly-deg 16 --eig-amin 0.5 \
+        --solve-type direct-pc --production
+
+--solve-type direct eigensolves MdagM of the full operator (K1),
+direct-pc that of the packed even-odd preconditioned operator (K6).  The
+port has only the production path; --production is accepted so that the
+JAX CLI's production invocations run unchanged.  Options of the JAX CLI
+that are not ported raise NotImplementedError naming their ROADMAP item.
+"""
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+from .common import (add_dirac_args, add_eig_args, add_lattice_args,
+                     build_params)
+
+
+def _not_ported(flag: str, item: str):
+    raise NotImplementedError(f"{flag} is not ported to mugiq_tpu_torch yet "
+                              f"(ROADMAP queue 1, {item})")
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        prog="mugiq-eigensolve-torch",
+        description="Eigenpairs of the Dirac operator on a CUDA device "
+                    "(computeEvecsMuGiq)")
+    add_lattice_args(p)
+    add_dirac_args(p)
+    add_eig_args(p)
+    g = p.add_argument_group("production")
+    g.add_argument("--production", action="store_true",
+                   help="accepted for compatibility with mugiq-eigensolve: "
+                        "the port always runs the production path")
+    g.add_argument("--autotune", action="store_true",
+                   help="accepted for compatibility: the port has one "
+                        "kernel per operator and nothing to tune")
+    g.add_argument("--link-precision", choices=("f32", "bf16"),
+                   default="f32",
+                   help="link/clover storage precision (arithmetic f32)")
+    g.add_argument("--basis-precision", choices=("f32", "bf16"),
+                   default="f32",
+                   help="Krylov-basis storage precision (bf16 not ported)")
+    g.add_argument("--prec", choices=["single", "double"], default="single",
+                   help="working precision (double not ported)")
+    g.add_argument("--mugiq-use-mg", choices=["yes", "no"], default="no",
+                   help="eigensolve the MG coarse operator (not ported)")
+    g.add_argument("--mesh", type=int, nargs="+", default=None, metavar="N",
+                   help="device mesh over the lattice axes (not ported)")
+    return p.parse_args(argv)
+
+
+def run(argv=None):
+    """Parse, eigensolve, log as the JAX CLI does, save or load the evecs;
+    returns (LanczosResult or None, evals, sigma, resids).  With
+    --eig-vec-infile it loads the checkpoint instead of solving and the
+    first item is None."""
+    args = parse_args(argv)
+    if args.basis_precision == "bf16":
+        _not_ported("--basis-precision bf16", "item 3")
+    if args.mugiq_use_mg == "yes":
+        _not_ported("--mugiq-use-mg yes", "item 11")
+    if args.mesh is not None:
+        _not_ported("--mesh", "item 14")
+    if args.prec == "double":
+        _not_ported("--prec double", "item 9")
+
+    from ..io.gauge_io import load_evecs, load_gauge_np, plaquette, save_evecs
+    from ..lattice import LatticeGeometry
+    from ..production import compute_evecs_production
+    from ..utils import log, print_profile, resolve_device
+
+    device = resolve_device(args.device)
+    gp, ip, ep = build_params(args)
+    geom = LatticeGeometry(gp.dims)
+    U = load_gauge_np(args.gauge, geom, seed=args.gauge_seed)
+    tot, sp, tm = plaquette(U, device)
+    log(f"Computed plaquette is {tot:.8f} "
+        f"(spatial = {sp:.8f}, temporal = {tm:.8f})")
+
+    if args.eig_vec_infile:
+        evecs, evals, sigma, resids, attrs = load_evecs(args.eig_vec_infile)
+        log(f"Loaded {evecs.shape[0]} eigenvectors from "
+            f"{args.eig_vec_infile} (attrs: {dict(attrs)})")
+        for i, lam in enumerate(evals):
+            lam = complex(lam)
+            log(f"Mugiq: Eval[{i:04d}] = {lam.real:+.16e} {lam.imag:+.16e}")
+        return None, evals, sigma, resids
+
+    if args.autotune:
+        log("--autotune: the port has one kernel per operator; nothing to "
+            "tune")
+    t0 = time.time()
+    res, evals, sigma, resids = compute_evecs_production(
+        U, gp, ip, ep, seed=ep.seed, precision=args.link_precision,
+        even_odd=args.solve_type == "direct-pc", device=device)
+    if not res.converged:
+        log("WARNING: production eigensolve did NOT converge to tolerance")
+    for i in range(len(evals)):
+        lam = complex(evals[i])
+        log(f"Mugiq: Eval[{i:04d}] = {lam.real:+.16e} "
+            f"{lam.imag:+.16e} , Residual = {resids[i]:+.16e}")
+    for i in range(len(sigma)):
+        log(f"Mugiq: Sigma[{i:04d}] = {sigma[i]:+.16e}")
+    log(f"Time for solution = {time.time() - t0:.3f} s")
+    print_profile()
+    if args.eig_vec_outfile:
+        save_evecs(args.eig_vec_outfile, res.evecs.cpu().numpy(), evals,
+                   sigma=sigma, resids=np.asarray(resids),
+                   attrs={"dims": str(geom.dims), "kappa": str(ip.kappa),
+                          "layout": "kernel-realpair"})
+        log(f"Eigenvectors saved to {args.eig_vec_outfile}")
+    return res, evals, sigma, resids
+
+
+def main(argv=None):
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

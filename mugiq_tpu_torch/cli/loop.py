@@ -91,11 +91,14 @@ def run(argv=None):
     tot, sp, tm = plaquette(U, device)
     log(f"Computed plaquette is {tot:.8f} "
         f"(spatial = {sp:.8f}, temporal = {tm:.8f})")
+    if args.solve_type == "direct-pc":
+        log("--solve-type direct-pc applies to the eigensolve CLI; the loop "
+            "eigensolves the full operator, as mugiq-loop does")
 
     t0 = time.time()
     res = compute_loop_production(U, gp, ip, ep, lp, U_loop_np=U_loop,
                                   precision=args.link_precision,
-                                  device=device)
+                                  seed=ep.seed, device=device)
     for i, (lam, r) in enumerate(zip(res.evals, res.resids)):
         log(f"Mugiq: Eval[{i:04d}] = {lam:+.16e} , Residual = {r:+.16e}")
     for i, s in enumerate(res.sigma):

@@ -2,7 +2,7 @@
 
 A = 1 + (csw kappa / 2) sum_{mu<nu} sigma_{mu nu} F_{mu nu} from the clover
 leaves of a (phased) gauge field, packed into the two 6x6 chiral blocks the
-Wilson kernel applies.
+Wilson kernel applies, and their site-wise inverse.
 """
 
 import numpy as np
@@ -69,4 +69,21 @@ def clover_chiral_blocks_np(A: np.ndarray) -> np.ndarray:
         blk = np.moveaxis(blk, (3, 4), (1, 2))            # [T,6,6,Z,YX]
         out[:, chi, :, :, 0] = blk.real
         out[:, chi, :, :, 1] = blk.imag
+    return out
+
+
+def invert_chiral_blocks_np(A_blocks: np.ndarray) -> np.ndarray:
+    """Site-wise inverse of packed chiral clover blocks: [T, 2, 6, 6, 2, Z,
+    YX] -> the same layout holding A^-1 (per-site 6x6 complex inverses in
+    complex128, cast to f32; the Schur complement's A_oo^-1, the reference's
+    cloverInvert).  Host-side set-up, once per gauge."""
+    A_blocks = np.asarray(A_blocks, dtype=np.float32)
+    out = np.empty_like(A_blocks)
+    for chi in range(2):
+        blk = (A_blocks[:, chi, :, :, 0].astype(np.complex128)
+               + 1j * A_blocks[:, chi, :, :, 1])          # [T,6,6,Z,YX]
+        blk = np.moveaxis(blk, (1, 2), (3, 4))            # [T,Z,YX,6,6]
+        inv = np.moveaxis(np.linalg.inv(blk), (3, 4), (1, 2))
+        out[:, chi, :, :, 0] = inv.real.astype(np.float32)
+        out[:, chi, :, :, 1] = inv.imag.astype(np.float32)
     return out

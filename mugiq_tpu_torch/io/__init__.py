@@ -1,1 +1,1 @@
-"""Gauge input and loop-data output."""
+"""Gauge input (NERSC, ILDG), eigenvector checkpoints, loop-data output."""

@@ -1,6 +1,7 @@
-"""Gauge configurations: NERSC reader, host gauge factory, plaquette
-(port of mugiq_tpu.io.gauge_io.load_gauge_np / read_nersc_gauge and of
-fields._project_su3 / plaquette_np).
+"""Gauge configurations and eigenvector checkpoints: NERSC reader, host
+gauge factory (NERSC or ILDG files), plaquette, evec save/load (port of
+mugiq_tpu.io.gauge_io load_gauge_np / read_nersc_gauge / save_evecs /
+load_evecs and of fields._project_su3 / plaquette_np).
 
 Gauge fields are complex numpy arrays U[4, T, Z, Y, X, 3, 3]; the
 production path converts them to the kernel layout itself.
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from ..lattice import LatticeGeometry
+from .lime_io import LIME_MAGIC, read_ildg_gauge
 
 _HDR_BEGIN = b"BEGIN_HEADER"
 _HDR_END = b"END_HEADER"
@@ -96,7 +98,8 @@ def read_nersc_gauge(path: str) -> Tuple[np.ndarray, Dict[str, str]]:
 
 def load_gauge_np(spec: str, geom: LatticeGeometry,
                   seed: int = 0) -> np.ndarray:
-    """Host gauge factory: 'unit' | 'random' | 'weak[:eps]' | a NERSC path.
+    """Host gauge factory: 'unit' | 'random' | 'weak[:eps]' | a path to a
+    NERSC or an ILDG (LIME) file, told apart by the LIME magic.
 
     'random' and 'weak' draw from numpy's default_rng(seed) exactly as the
     JAX package does, so both packages build the same field."""
@@ -117,7 +120,12 @@ def load_gauge_np(spec: str, geom: LatticeGeometry,
         w, v = np.linalg.eigh(h)
         return np.einsum("...ab,...b,...cb->...ac", v, np.exp(1j * eps * w),
                          np.conj(v))
-    U, _ = read_nersc_gauge(spec)
+    with open(spec, "rb") as f:
+        magic = f.read(4)
+    if int.from_bytes(magic, "big") == LIME_MAGIC:
+        U, _ = read_ildg_gauge(spec)
+    else:
+        U, _ = read_nersc_gauge(spec)
     dims = (U.shape[4], U.shape[3], U.shape[2], U.shape[1])
     if dims != geom.dims:
         raise ValueError(f"gauge file dims {dims} != requested {geom.dims}")
@@ -144,3 +152,34 @@ def plaquette(U_np: np.ndarray, device="cpu") -> tuple:
     sp = sum(spatial) / len(spatial)
     tm = sum(temporal) / len(temporal)
     return (sp + tm) / 2.0, sp, tm
+
+
+def save_evecs(path: str, evecs, evals, sigma=None, resids=None,
+               attrs: Dict[str, str] = None) -> None:
+    """Eigenvector checkpoint (vec_outfile analog): HDF5 datasets evecs,
+    evals and, where given, sigma and resids; `attrs` as file attributes.
+    The same layout as the JAX package writes."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        f.create_dataset("evecs", data=np.asarray(evecs))
+        f.create_dataset("evals", data=np.asarray(evals))
+        if sigma is not None:
+            f.create_dataset("sigma", data=np.asarray(sigma))
+        if resids is not None:
+            f.create_dataset("resids", data=np.asarray(resids))
+        for k, v in (attrs or {}).items():
+            f.attrs[k] = v
+
+
+def load_evecs(path: str):
+    """-> (evecs, evals, sigma or None, resids or None, attrs)."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        evecs = f["evecs"][:]
+        evals = f["evals"][:]
+        sigma = f["sigma"][:] if "sigma" in f else None
+        resids = f["resids"][:] if "resids" in f else None
+        attrs = dict(f.attrs)
+    return evecs, evals, sigma, resids, attrs

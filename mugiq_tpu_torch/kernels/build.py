@@ -51,26 +51,45 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{_source_key()}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and return the loaded library."""
-    if name in _LIBS:
-        return _LIBS[name]
-    so = library_path(name)
-    if not so.exists():
+def sources() -> list:
+    """The kernel sources: the name of every ``csrc/<name>.cu``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build_all(names=None) -> None:
+    """Compile every ``csrc/<name>.cu`` of `names` (default: all sources)
+    not built yet, one nvcc process per source, all started together."""
+    jobs = []
+    for name in sources() if names is None else names:
+        so = library_path(name)
+        if so.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((name, so, tmp, cmd, proc))
+    failed = []
+    for name, so, tmp, cmd, proc in jobs:
+        out, err = proc.communicate()
+        so.with_suffix(".log").write_text(" ".join(cmd) + "\n" + out + err)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {name}.cu "
-                               f"(rc {proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    _LIBS[name] = lib
-    return lib
+            failed.append(f"nvcc failed building {name}.cu "
+                          f"(rc {proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and return the loaded library."""
+    if name not in _LIBS:
+        build_all([name])
+        _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return _LIBS[name]
 
 
 def build_log(name: str) -> str:

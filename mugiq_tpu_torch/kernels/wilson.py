@@ -56,15 +56,16 @@ def _clinks(U, Y):
     return torch.complex(u[:, :, 0], u[:, :, 1])
 
 
-def wilson_m_plain(psi, U, A144, kappa: float, dagger: bool, Y: int):
-    """Plain PyTorch twin of the kernel: the same maths with torch.roll
-    neighbours and full 4x4 spin projectors (1 -/+ g_mu); links and clover
-    upcast to f32 as in the kernel."""
+def dslash_hop_plain(psi, U, dagger: bool, Y: int):
+    """The hopping term D psi (dagger: D^dag psi) in plain PyTorch, with
+    torch.roll neighbours and full 4x4 spin projectors (1 -/+ g_mu); links
+    upcast to f32.  psi [T, 24, Z, Y*X], U [T, 4, 18, Z, Y*X] ->
+    [T, 24, Z, Y*X] f32."""
     p = _cspinor(psi, Y)
     u = _clinks(U, Y)
     g = torch.as_tensor(gamma_matrices(), dtype=p.dtype, device=p.device)
     eye = torch.eye(4, dtype=p.dtype, device=p.device)
-    # M^dag swaps the projectors (g5 D g5)
+    # D^dag swaps the projectors (g5 D g5)
     sf, sb = (1.0, -1.0) if dagger else (-1.0, 1.0)
     hop = torch.zeros_like(p)
     for mu in range(4):
@@ -76,16 +77,28 @@ def wilson_m_plain(psi, U, A144, kappa: float, dagger: bool, Y: int):
                            torch.roll(um, 1, ax).conj(), torch.roll(p, 1, ax))
         hop += torch.einsum("rs,tsazyx->trazyx", eye + sf * g[mu], fwd)
         hop += torch.einsum("rs,tsazyx->trazyx", eye + sb * g[mu], bwd)
-    if A144 is None:
-        diag = p
-    else:
-        T, _, Z, YX = A144.shape
-        a = A144.float().reshape(T, 2, 6, 6, 2, Z, YX)
-        ac = torch.complex(a[:, :, :, :, 0], a[:, :, :, :, 1])
-        # chiral blocks: spins (2 chi, 2 chi + 1) x colour, contiguous
-        pv = p.reshape(T, 2, 6, Z, YX)
-        diag = torch.einsum("tckjzv,tcjzv->tckzv", ac, pv).reshape(p.shape)
-    return _rspinor(diag - kappa * hop)
+    return _rspinor(hop)
+
+
+def clover_apply_plain(A144, psi):
+    """Site-wise chiral 6x6 clover blocks times a spinor: A144 [T, 144, Z, V]
+    (f32|bf16, upcast), psi [T, 24, Z, V] -> [T, 24, Z, V] f32, for any
+    site axis V (full or packed volume)."""
+    T, _, Z, V = psi.shape
+    a = A144.float().reshape(T, 2, 6, 6, 2, Z, V)
+    ac = torch.complex(a[:, :, :, :, 0], a[:, :, :, :, 1])
+    p = psi.float().reshape(T, 2, 12, Z, V)
+    # chiral blocks: spins (2 chi, 2 chi + 1) x colour, contiguous
+    pv = torch.complex(p[:, 0], p[:, 1]).reshape(T, 2, 6, Z, V)
+    d = torch.einsum("tckjzv,tcjzv->tckzv", ac, pv).reshape(T, 12, Z, V)
+    return torch.cat([d.real, d.imag], 1)
+
+
+def wilson_m_plain(psi, U, A144, kappa: float, dagger: bool, Y: int):
+    """Plain PyTorch twin of the kernel: A psi - kappa D psi with the hop of
+    dslash_hop_plain; links and clover upcast to f32 as in the kernel."""
+    diag = psi.float() if A144 is None else clover_apply_plain(A144, psi)
+    return diag - kappa * dslash_hop_plain(psi, U, dagger, Y)
 
 
 def wilson_m(psi, U, A144, kappa: float, dagger: bool, Y: int, out=None):

@@ -1,7 +1,8 @@
 """Layout converters between the host complex fields, the planar real-pair
 layout and the kernel layout (port of pallas/dslash_kernel.py:47-69,
 production._planar_gauge_np and the loop-gauge host relayout,
-production.py:503-507), and the carry-over of a JAX-package operator.
+production.py:503-507), and the carry-over of a JAX-package operator
+(full or packed even-odd).
 
 Kernel layouts (sites minor, so one thread per site reads coalesced):
 
@@ -61,17 +62,32 @@ def kernel_gauge_np(U_np: np.ndarray, antiperiodic_t: bool,
             T, 4, 18, Z, Y * X))
 
 
+def _tensor(a, device):
+    """numpy (f32, or bf16 through ml_dtypes: exact) -> f32 tensor."""
+    return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+
 def from_jax_numpy(U_k, A_blocks, kappa: float, Y: int,
-                   precision: str = "f32", device="cpu"):
+                   precision: str = "f32", device="cuda"):
     """The JAX package's WilsonDiracKernel state, as numpy (U_k
     [T,4,18,Z,YX], A_blocks [T,2,6,6,2,Z,YX] or None, kappa, Y,
-    precision), as this package's operator on `device`.
-
-    bf16 arrays (ml_dtypes) convert exactly through float32."""
+    precision), as this package's operator on `device`."""
     from .dirac_kernel import WilsonDiracKernel
 
-    U = torch.from_numpy(np.array(U_k, np.float32)).to(device)
-    A = (None if A_blocks is None
-         else torch.from_numpy(np.array(A_blocks, np.float32)).to(device))
-    return WilsonDiracKernel(U_k=U, kappa=float(kappa), Y=int(Y),
-                             A_blocks=A, precision=precision)
+    A = None if A_blocks is None else _tensor(A_blocks, device)
+    return WilsonDiracKernel(U_k=_tensor(U_k, device), kappa=float(kappa),
+                             Y=int(Y), A_blocks=A, precision=precision)
+
+
+def from_jax_packed_numpy(U_k, A_blocks, Ainv_blocks, kappa: float, Y: int,
+                          precision: str = "f32", device="cuda"):
+    """The JAX package's SchurDiracKernelPacked state, as numpy (full U_k
+    [T,4,18,Z,YX], A_blocks and Ainv_blocks [T,2,6,6,2,Z,YX] or None,
+    kappa, Y, precision), as this package's packed operator on `device`."""
+    from .schur_kernel import SchurDiracKernelPacked
+
+    A = None if A_blocks is None else _tensor(A_blocks, device)
+    Ainv = None if Ainv_blocks is None else _tensor(Ainv_blocks, device)
+    return SchurDiracKernelPacked(U_k=_tensor(U_k, device),
+                                  kappa=float(kappa), Y=int(Y), A_blocks=A,
+                                  Ainv_blocks=Ainv, precision=precision)

@@ -1,8 +1,10 @@
 """The single-device production loop on a CUDA device (port of
-mugiq_tpu.production: build_kernel_dirac, compute_evecs_production,
-compute_loop_production, _measure_production_kernel, _measure_tail).
+mugiq_tpu.production: build_kernel_dirac, build_packed_schur,
+compute_evecs_production, compute_loop_production,
+_measure_production_kernel, _measure_tail).
 
-Eigensolve of MdagM (or MMdag) with thick-restart Lanczos, optionally
+Eigensolve of MdagM (or MMdag) of the full operator, or of the packed
+even-odd preconditioned one, with thick-restart Lanczos, optionally
 Chebyshev-filtered and then Rayleigh-Ritz refined; the computeEvals tail;
 the measurement on the kernel layout (K2 contraction, K3 displacement
 chains); the g5 map, momentum-projection GEMM and HDF5 output.  Complex
@@ -24,6 +26,7 @@ from .kernels.contract import covariant_displace, gamma_project, loop_contract
 from .lanczos import lanczos_hermitian_realpair, rayleigh_ritz_refine
 from .lattice import LatticeGeometry
 from .layout import kernel_gauge_np
+from .schur_kernel import SchurDiracKernelPacked
 from .loop import LoopComputeParam
 from .params import (DslashType, EigOperator, EigParam, GaugeParam,
                      InvertParam, LoopParam, MassNormalization, parse_disp_str)
@@ -59,6 +62,33 @@ def build_kernel_dirac(U_np: np.ndarray, gauge: GaugeParam, inv: InvertParam,
                              A_blocks=A_blocks, precision=precision)
 
 
+def build_packed_schur(U_np: np.ndarray, gauge: GaugeParam,
+                       inv: InvertParam, precision: str = "f32",
+                       device="cuda") -> SchurDiracKernelPacked:
+    """Packed even-odd Schur operator (half-volume fields) from a complex
+    numpy gauge (reference pc_solve, eigsolve_mugiq.cpp:169-181).  Clover:
+    the asymmetric even-even Schur complement, with the A_oo block inverse
+    computed on the host."""
+    dev = resolve_device(device)
+    geom = LatticeGeometry(gauge.dims)
+    U_k = torch.from_numpy(kernel_gauge_np(U_np, gauge.antiperiodic_t,
+                                           gauge.anisotropy)).to(dev)
+    A_blocks = Ainv_blocks = None
+    if inv.dslash_type == DslashType.CLOVER_WILSON:
+        from .clover_np import (clover_chiral_blocks_np, clover_field_np,
+                                invert_chiral_blocks_np)
+        u = np.asarray(U_np).copy()
+        if gauge.antiperiodic_t:
+            u[3, -1] *= -1.0
+        A_np = clover_chiral_blocks_np(clover_field_np(u, inv.kappa,
+                                                       inv.csw))
+        Ainv_blocks = torch.from_numpy(invert_chiral_blocks_np(A_np)).to(dev)
+        A_blocks = torch.from_numpy(A_np).to(dev)
+    return SchurDiracKernelPacked(U_k=U_k, kappa=inv.kappa, Y=geom.dims[1],
+                                  A_blocks=A_blocks, Ainv_blocks=Ainv_blocks,
+                                  precision=precision)
+
+
 @dataclass
 class ProductionResult:
     evals: np.ndarray
@@ -79,9 +109,9 @@ def compute_evecs_production(U_np: np.ndarray, gauge: GaugeParam,
     lib/interface_mugiq.cpp:122-156): thick-restart Lanczos (+ optional
     Chebyshev and Rayleigh-Ritz refine), then the computeEvals analog
     (Rayleigh quotient, mass-normalization rescale, residuals, sigma).
+    even_odd=True eigensolves the packed even-odd preconditioned operator
+    (pc_solve): half-volume evecs [n, T, 24, Z, Y*X/2].
     Returns (LanczosResult, evals, sigma, resids)."""
-    if even_odd:
-        _not_ported("the packed even-odd operator (even_odd=True)", "item 6")
     if eig.block_size > 1:
         _not_ported("block Lanczos (block_size > 1)", "item 8")
     if eig.operator in (EigOperator.M, EigOperator.Mdag):
@@ -89,10 +119,9 @@ def compute_evecs_production(U_np: np.ndarray, gauge: GaugeParam,
     if basis_precision != "f32":
         _not_ported(f"basis_precision={basis_precision!r}", "item 3")
     dev = resolve_device(device)
-    geom = LatticeGeometry(gauge.dims)
+    build = build_packed_schur if even_odd else build_kernel_dirac
     with phase_timer("operator-setup"):
-        op = build_kernel_dirac(U_np, gauge, inv, precision=precision,
-                                device=dev)
+        op = build(U_np, gauge, inv, precision=precision, device=dev)
 
     # start vector drawn on the host exactly as the JAX package draws it
     rng = np.random.default_rng(seed)

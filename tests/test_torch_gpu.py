@@ -5,14 +5,17 @@ device).  The file imports no JAX, so it runs on the GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
-Small odd extents exercise every periodic wrap of the index arithmetic.
-Tolerances are f32 summation order only: K1 2e-5 of max |out| (~100
-terms per output, half-spinor vs full-projector form), K2 2e-6, K3 1e-6.
+Small odd extents exercise every periodic wrap of the index arithmetic;
+K6 needs even ones (the checkerboard), distinct so that no two axes can be
+confused.  Tolerances are f32 summation order only: K1 and K6 2e-5 of max
+|out| (~100 terms per output, half-spinor vs full-projector form, K6's
+twin at full volume), K2 2e-6, K3 1e-6.
 """
 
 import pytest
 import torch
 
+from mugiq_tpu_torch.kernels.parity import parity_hop, parity_hop_plain
 from mugiq_tpu_torch.kernels.contract import (
     covariant_displace, covariant_displace_plain, loop_contract,
     loop_contract_plain)
@@ -73,3 +76,28 @@ def test_displace_kernel_matches_twin_on_card(dstr):
     torch.cuda.synchronize()
     assert covariant_displace.launches == n0 + 1
     assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["hop", "post", "comb", "comb_clover"])
+@pytest.mark.parametrize("dagger", [False, True])
+@pytest.mark.parametrize("parity_out", [0, 1])
+def test_parity_hop_matches_twin_on_card(prec, mode, dagger, parity_out):
+    dev = cuda_device()
+    T, Z, Y, Xh = 4, 2, 6, 4
+    dt = torch.bfloat16 if prec == "bf16" else torch.float32
+    psi = torch.from_numpy(rand((T, 24, Z, Y * Xh), 1)).to(dev)
+    Uo = torch.from_numpy(rand((T, 4, 18, Z, Y * Xh), 2, 0.5)).to(dev).to(dt)
+    Ui = torch.from_numpy(rand((T, 4, 18, Z, Y * Xh), 3, 0.5)).to(dev).to(dt)
+    A = torch.from_numpy(rand((T, 144, Z, Y * Xh), 4, 0.2)).to(dev).to(dt)
+    pe = torch.from_numpy(rand((T, 24, Z, Y * Xh), 5)).to(dev)
+    kw = {"hop": {}, "post": dict(A_post=A),
+          "comb": dict(kappa2=0.0169, psi_out=pe),
+          "comb_clover": dict(kappa2=0.0169, psi_out=pe, A_comb=A)}[mode]
+    ref = parity_hop_plain(psi, Uo, Ui, Y, parity_out, dagger, **kw)
+    n0 = parity_hop.launches
+    got = parity_hop(psi, Uo, Ui, Y, parity_out, dagger, **kw)
+    torch.cuda.synchronize()
+    assert parity_hop.launches == n0 + 1
+    assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())

@@ -1,9 +1,10 @@
 """Host-side pieces of mugiq_tpu_torch against the JAX package: layouts,
-gauge factory and NERSC reader, plaquette, clover blocks, gamma tables,
-parameter parsing.  All exact (the same numpy code on the same inputs)
+gauge factory, NERSC and ILDG readers, plaquette, clover blocks, gamma
+tables, parameter parsing.  All exact (the same numpy code on the same inputs)
 unless a tolerance is stated.  Also: the package imports no JAX and pins
 full-f32 GEMMs."""
 
+import ast
 import re
 import subprocess
 import sys
@@ -34,14 +35,34 @@ def _run_fresh(code: str) -> str:
 _IMPORT_ALL = (
     "import sys, torch\n"
     "import mugiq_tpu_torch, mugiq_tpu_torch.production, "
-    "mugiq_tpu_torch.cli.loop, mugiq_tpu_torch.layout, "
-    "mugiq_tpu_torch.io.gauge_io, mugiq_tpu_torch.io.hdf5io\n")
+    "mugiq_tpu_torch.cli.loop, mugiq_tpu_torch.cli.eigensolve, "
+    "mugiq_tpu_torch.layout, mugiq_tpu_torch.schur_kernel, "
+    "mugiq_tpu_torch.kernels.parity, mugiq_tpu_torch.io.gauge_io, "
+    "mugiq_tpu_torch.io.lime_io, mugiq_tpu_torch.io.hdf5io, chip_smoke\n")
 
 
 def test_import_leaves_jax_out():
     out = _run_fresh(_IMPORT_ALL + "print('jax' in sys.modules, "
                      "'mugiq_tpu' in sys.modules, 'h5py' in sys.modules)")
     assert out.split() == ["False", "False", "False"]
+
+
+def test_sources_import_no_jax():
+    """No import statement of the port or of chip_smoke.py, at any level,
+    names jax or the JAX package."""
+    files = sorted((REPO / "mugiq_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "mugiq_tpu"), \
+                    f"{path.relative_to(REPO)} imports {name}"
 
 
 def test_import_pins_full_f32():
@@ -71,9 +92,13 @@ def test_gamma_tables_match_jax():
 
 
 def test_cuda_projector_tables_are_wilson_projectors():
-    """The unit-phase tables baked into wilson_m.cu rebuild 1 -/+ g_mu
-    exactly, and are _projector_decomp's rows scaled by sqrt(2)."""
-    src = (REPO / "mugiq_tpu_torch/kernels/csrc/wilson_m.cu").read_text()
+    """The unit-phase tables baked into hop_common.cuh, which K1 and K6
+    include, rebuild 1 -/+ g_mu exactly, and are _projector_decomp's rows
+    scaled by sqrt(2)."""
+    csrc = REPO / "mugiq_tpu_torch/kernels/csrc"
+    for kernel in ("wilson_m.cu", "parity_hop.cu"):
+        assert '#include "hop_common.cuh"' in (csrc / kernel).read_text()
+    src = (csrc / "hop_common.cuh").read_text()
     rows = re.findall(r"ProjTab\{\{\{(\d), (\d)\}, \{(\d), (\d)\}\}, "
                       r"\{\{(\d), (\d)\}, \{(\d), (\d)\}\}, "
                       r"\{(\d), (\d), (\d), (\d)\}, "
@@ -145,6 +170,29 @@ def test_nersc_reader_matches_jax(tmp_path, three_row):
     assert hdr == hdr_ref
     np.testing.assert_array_equal(
         gauge_io.load_gauge_np(str(path), GEOM), ref)
+    with pytest.raises(ValueError, match="dims"):
+        gauge_io.load_gauge_np(str(path), LatticeGeometry((4, 4, 4, 4)))
+
+
+@pytest.mark.parametrize("double", [True, False])
+def test_ildg_reader_matches_jax(tmp_path, double):
+    """An ILDG file written by the JAX package reads the same through both
+    load_gauge_np (the LIME magic selects the reader); the port's writer
+    gives the same bytes."""
+    from mugiq_tpu.io.gauge_io import load_gauge_np
+    from mugiq_tpu.io.lime_io import write_ildg_gauge
+    from mugiq_tpu_torch.io import lime_io
+
+    U = gauge_io.load_gauge_np("random", GEOM, seed=8)
+    path = tmp_path / "cfg.lime"
+    write_ildg_gauge(str(path), U, double=double)
+    got = gauge_io.load_gauge_np(str(path), GEOM)
+    np.testing.assert_array_equal(got, load_gauge_np(str(path), GEOM))
+    if double:
+        np.testing.assert_array_equal(got, U)
+    mine = tmp_path / "mine.lime"
+    lime_io.write_ildg_gauge(str(mine), U, double=double)
+    assert mine.read_bytes() == path.read_bytes()
     with pytest.raises(ValueError, match="dims"):
         gauge_io.load_gauge_np(str(path), LatticeGeometry((4, 4, 4, 4)))
 

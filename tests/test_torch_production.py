@@ -131,7 +131,7 @@ def test_slice_hdf5_matches_jax_writer(jax_ref, port_run):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(even_odd=True), dict(basis_precision="bf16"),
+    dict(basis_precision="bf16"),
     dict(eig=EigParam(n_ev=2, n_kr=8, block_size=2)),
     dict(eig=EigParam(n_ev=2, n_kr=8, operator=EigOperator.M))])
 def test_eigensolve_options_outside_slice_raise(kw):

@@ -37,4 +37,17 @@ def port_operator(jop, precision="f32"):
 
     A = None if jop.A_blocks is None else np.asarray(jop.A_blocks, np.float32)
     return from_jax_numpy(np.asarray(jop.U_k, np.float32), A, jop.kappa,
-                          jop.Y, precision=precision)
+                          jop.Y, precision=precision, device="cpu")
+
+
+def port_packed_operator(jop):
+    """The port's packed even-odd operator carried over from the state of a
+    JAX SchurDiracKernelPacked (its links and blocks, f32 or bf16)."""
+    from mugiq_tpu_torch.layout import from_jax_packed_numpy
+
+    def f32(a):
+        return None if a is None else np.asarray(a, np.float32)
+
+    return from_jax_packed_numpy(f32(jop.U_k), f32(jop.A_blocks),
+                                 f32(jop.Ainv_blocks), jop.kappa, jop.Y,
+                                 precision=jop.precision, device="cpu")
