@@ -89,8 +89,8 @@ SOURCE = {
 # T, Z, Y, X of the kernel-vs-twin phases: the flagships' lattice
 KERNEL_SHAPE = (64, 32, 32, 32)
 
-# The least time the card could take (on-chip-measurement guide, H100 SXM
-# data sheet): HBM 3.35 TB/s; float32 outside the tensor cores 67 TFLOP/s.
+# The least time the card could take (H100 SXM data sheet): HBM 3.35 TB/s;
+# float32 outside the tensor cores 67 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
