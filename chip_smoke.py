@@ -24,9 +24,18 @@ Phases (each prints its own lines and raises on failure):
   flagship  the flagship 32^3x64 loop through the CLI
             (mugiq_tpu_torch.cli.loop);
   pc-flagship  the flagship 32^3x64 pc eigensolve through the CLI
-            (mugiq_tpu_torch.cli.eigensolve --solve-type direct-pc).
-Each of the two flagships is a main path: every launch counter is set to 0
-just before it and read just after.  The last two lines are
+            (mugiq_tpu_torch.cli.eigensolve --solve-type direct-pc);
+  hopdir    K5 against its twin at 32^3x64 for all 8 (mu, sign), M and
+            M^dag, f32 and bf16 links, with times and bounds, and K5 tied
+            to K1: psi - kappa sum_{mu, sign} K5(psi) = K1(psi) (Wilson);
+  mg-slice  the MG-deflated loop at 8^3x16 (2 levels, block 2^4, n_vec 6)
+            through the kernels on the card against the same run through
+            the twins on the CPU;
+  mg-flagship  the MG-deflated 32^3x64 loop through the CLI (the settings
+            of scripts/time_mg32.py plus one displacement), held to the
+            coarse eigenvalues the JAX package recorded.
+Each of the three flagships is a main path: every launch counter is set to
+0 just before it and read just after.  The last two lines are
 {"kernels": [...]} and {"ok": true, "device": {...}}.  Without CUDA, or
 outside a checkout of the repository, it exits nonzero and prints no
 result.
@@ -67,23 +76,44 @@ PC_FLAGSHIP_ARGS = [
     "--production"]
 PC_SLICE_AMIN = 0.2
 
+# The MG-deflated loop of scripts/time_mg32.py (2 levels, block 4^4 ->
+# coarse 8^3x16, 12 null vectors, 8 setup iterations, bf16 links, nEv 8,
+# nKr 24, tol 1e-6) with one displacement, so that K3 runs on MG evecs.
+MG_FLAGSHIP_ARGS = [
+    "--dims", "32", "32", "32", "64", "--gauge", "random", "--gauge-seed", "1",
+    "--kappa", "0.12", "--eig-nev", "8", "--eig-nkr", "24", "--eig-tol", "1e-6",
+    "--eig-max-restarts", "120", "--mugiq-use-mg", "yes", "--mg-levels", "2",
+    "--mg-block-size", "4", "4", "4", "4", "--mg-nvec", "12",
+    "--mg-setup-iters", "8", "--link-precision", "bf16",
+    "--loop-do-nonlocal", "yes", "--displace-entry-string", "+z:1",
+    "--production"]
+MG_FLAGSHIP_MOMENTA = "0 0 0\n1 0 0\n"
+# the four lowest coarse eigenvalues of that run (artifacts/time_mg32.json,
+# "coarse_evals4"): the same gauge, hierarchy recipe and coarse operator
+MG_COARSE_EVALS4 = (0.35264265537261963, 0.3527253270149231,
+                    0.35273972153663635, 0.35287201404571533)
+MG_EVALS_RTOL = 1e-3
+MG_MAX_RESIDUAL = 1e-5
+
 # kernel vs twin: max |kernel - twin| / max |twin|.  Both run in f32 with
 # the same inputs and differ only in summation order (K1, K6: half-spinor
 # vs full projector form, ~100 terms per output; K2: n*3 terms; K3: 3).
 TOL = {"wilson_m": 2e-5, "loop_contract": 2e-5, "covariant_displace": 1e-5,
-       "parity_hop": 2e-5, "identity": 1e-5}
+       "parity_hop": 2e-5, "dslash_hop_dir": 2e-5, "identity": 1e-5}
 
 TPU_KERNEL = {
     "wilson_m": "mugiq_tpu/pallas/dslash_kernel.py:395",
     "loop_contract": "mugiq_tpu/pallas/contract_kernel.py:99",
     "covariant_displace": "mugiq_tpu/pallas/contract_kernel.py:192",
     "parity_hop": "mugiq_tpu/pallas/schur_kernel.py:350",
+    "dslash_hop_dir": "mugiq_tpu/pallas/dslash_kernel.py:736",
 }
 SOURCE = {
     "wilson_m": "mugiq_tpu_torch/kernels/csrc/wilson_m.cu",
     "loop_contract": "mugiq_tpu_torch/kernels/csrc/contract.cu",
     "covariant_displace": "mugiq_tpu_torch/kernels/csrc/contract.cu",
     "parity_hop": "mugiq_tpu_torch/kernels/csrc/parity_hop.cu",
+    "dslash_hop_dir": "mugiq_tpu_torch/kernels/csrc/hop_dir.cu",
 }
 
 # T, Z, Y, X of the kernel-vs-twin phases: the flagships' lattice
@@ -564,8 +594,160 @@ def phase_pc_flagship(counters):
     return launches
 
 
+def phase_hopdir(dev, stats):
+    """K5 against its twin on the card at 32^3x64, every variant, and the
+    eight directed hops tied to K1."""
+    import torch
+    from mugiq_tpu_torch.kernels.hop_dir import (FLOP_PER_SITE,
+                                                 dslash_hop_dir,
+                                                 dslash_hop_dir_plain)
+    from mugiq_tpu_torch.kernels.wilson import wilson_m
+
+    T, Z, Y, X = KERNEL_SHAPE
+    vol = T * Z * Y * X
+    g = torch.Generator(device=dev).manual_seed(3)
+    psi = torch.randn((T, 24, Z, Y * X), generator=g, device=dev)
+    U = torch.randn((T, 4, 18, Z, Y * X), generator=g, device=dev) * 0.5
+    out = torch.empty_like(psi)
+    worst = (0.0, 0.0)
+    for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        Ul = U.to(dt)
+        for dagger in (False, True):
+            for mu in range(4):
+                for sgn in (1, -1):
+                    ref = dslash_hop_dir_plain(psi, Ul, mu, sgn, dagger, Y)
+                    got = dslash_hop_dir(psi, Ul, mu, sgn, dagger, Y)
+                    err, rel = compare("dslash_hop_dir", got, ref)
+                    worst = max(worst, (rel, err))
+                    del ref, got
+                    ms = cuda_ms(lambda: dslash_hop_dir(
+                        psi, Ul, mu, sgn, dagger, Y, out=out), 20)
+                    pms = cuda_ms(lambda: dslash_hop_dir_plain(
+                        psi, Ul, mu, sgn, dagger, Y), 3, 1)
+                    # least traffic: the neighbour spinor, the one link
+                    # field U_mu, the output
+                    moved = nbytes(psi, out) + nbytes(Ul) // 4
+                    b = bound(moved, FLOP_PER_SITE * vol)
+                    tag = ("+" if sgn > 0 else "-") + "xyzt"[mu]
+                    say(f"K5 dslash_hop_dir {prec} {tag} dagger={int(dagger)}"
+                        f": rel err {rel:.2e} (abs {err:.2e}, tol "
+                        f"{TOL['dslash_hop_dir']:.0e})  kernel {ms:.3f} ms "
+                        f"(bound {b['bound_ms']:.3f} ms by {b['bound_by']}, "
+                        f"{b['bound_ms'] / ms:.2f} of it; "
+                        f"{moved / (stats['copy_GBps'] * 1e6) / ms:.2f} of "
+                        f"copy roofline)  twin {pms:.3f} ms")
+                    if (prec, dagger, mu, sgn) == ("f32", False, 0, 1):
+                        stats["dslash_hop_dir"] = {
+                            "ms": ms, "plain_ms": pms, "library_ms": None,
+                            **b}
+    stats["dslash_hop_dir"]["max_abs_err"] = worst[1]
+
+    kappa = 0.12
+    for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        Ul = U.to(dt)
+        for dagger in (False, True):
+            acc = psi.clone()
+            for mu in range(4):
+                for sgn in (1, -1):
+                    acc -= kappa * dslash_hop_dir(psi, Ul, mu, sgn, dagger,
+                                                  Y, out=out)
+            k1 = wilson_m(psi, Ul, None, kappa, dagger, Y)
+            torch.cuda.synchronize()
+            rel = float((acc - k1).abs().max()) / float(k1.abs().max())
+            say(f"identity K5 vs K1 {prec} dagger={int(dagger)}: rel "
+                f"{rel:.2e} (tol {TOL['identity']:.0e})")
+            if not rel <= TOL["identity"]:
+                raise AssertionError("the eight K5 hops disagree with K1")
+            del acc, k1
+
+
+def phase_mg_slice(dev):
+    """The MG-deflated loop at 8^3x16 through the kernels (card) vs the
+    twins (CPU)."""
+    import numpy as np
+    from mugiq_tpu_torch.io.gauge_io import load_gauge_np
+    from mugiq_tpu_torch.lattice import LatticeGeometry
+    from mugiq_tpu_torch.params import (EigParam, GaugeParam, InvertParam,
+                                        LoopParam, MGParam)
+    from mugiq_tpu_torch.production import compute_loop_production
+
+    geom = LatticeGeometry((8, 8, 8, 16))
+    U = load_gauge_np("weak:0.3", geom, seed=1)
+    gp = GaugeParam(dims=geom.dims)
+    ip = InvertParam(kappa=0.13)
+    # the coarse MdagM starts 0.15248 0.15351 0.15482 0.15540 | 0.15919:
+    # n_ev = 4 ends at a 2.4% gap
+    ep = EigParam(n_ev=4, n_kr=24, tol=1e-6, max_restarts=100)
+    lp = LoopParam(momenta=[(0, 0, 0), (1, 0, 0)], do_nonlocal=True,
+                   disp_entries=["+z:1,2"])
+    mg = MGParam(n_level=2, geo_block_size=[(2, 2, 2, 2)], n_vec=[6],
+                 setup_iters=8)
+    out = {}
+    for name, d in (("kernels", dev), ("twins", "cpu")):
+        t0 = time.perf_counter()
+        out[name] = compute_loop_production(U, gp, ip, ep, lp, use_mg=True,
+                                            mg=mg, device=d)
+        r = out[name]
+        say(f"mg slice 8^3x16 via {name} on {d}: "
+            f"{time.perf_counter() - t0:.2f} s, converged={r.converged} "
+            f"restarts={r.n_restarts} max resid {max(r.resids):.2e}")
+        if not r.converged:
+            raise AssertionError(f"mg slice via {name} did not converge")
+    a, b = out["kernels"], out["twins"]
+    ev_rel = float(np.max(np.abs(a.evals - b.evals) / b.evals))
+    dm = float(np.max(np.abs(a.data_mom - b.data_mom))
+               / np.max(np.abs(b.data_mom)))
+    say(f"mg slice kernels vs twins: coarse evals rel {ev_rel:.2e} (tol "
+        f"1e-5), data_mom rel {dm:.2e} (tol 1e-3)")
+    if not (ev_rel < 1e-5 and dm < 1e-3):
+        raise AssertionError("mg slice through kernels disagrees with twins")
+
+
+def phase_mg_flagship(counters):
+    import numpy as np
+    from mugiq_tpu_torch.cli import loop as cli_loop
+
+    tmp = tempfile.mkdtemp(prefix="mugiq_smoke_",
+                           dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        mom = os.path.join(tmp, "moms.txt")
+        with open(mom, "w") as f:
+            f.write(MG_FLAGSHIP_MOMENTA)
+        argv = MG_FLAGSHIP_ARGS + ["--momenta-filename", mom]
+        say("mg flagship CLI: python -m mugiq_tpu_torch.cli.loop "
+            + " ".join(argv))
+        res, _, _, launches = run_main_path("mg flagship", cli_loop.run,
+                                            argv, counters)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"mg flagship: converged={res.converged} restarts={res.n_restarts}")
+    for i, (lam, r) in enumerate(zip(res.evals, res.resids)):
+        say(f"mg flagship: coarse eval[{i}] {lam:+.10e} resid {r:.3e}")
+    if not res.converged or not max(res.resids) <= MG_MAX_RESIDUAL:
+        raise AssertionError(f"mg flagship: converged={res.converged}, max "
+                             f"coarse residual {max(res.resids):.3e} (limit "
+                             f"{MG_MAX_RESIDUAL})")
+    rel = np.abs(res.evals[:4] - np.asarray(MG_COARSE_EVALS4)) \
+        / np.asarray(MG_COARSE_EVALS4)
+    say(f"mg flagship: four lowest coarse evals vs the JAX record: rel "
+        f"{' '.join(f'{x:.2e}' for x in rel)} (tol {MG_EVALS_RTOL:.0e})")
+    if not np.all(rel <= MG_EVALS_RTOL):
+        raise AssertionError("mg flagship coarse eigenvalues disagree with "
+                             "the JAX record")
+    if res.data_mom.shape != (2, 2, 16, 64) or not np.isfinite(
+            res.data_mom).all():
+        raise AssertionError(f"mg flagship data_mom: shape "
+                             f"{res.data_mom.shape} or not finite")
+    for name in ("wilson_m", "loop_contract", "covariant_displace",
+                 "dslash_hop_dir"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the mg "
+                                 f"flagship run")
+    return launches
+
+
 PHASES = ("build", "kernels", "parity", "identity", "slice", "pc-slice",
-          "flagship", "pc-flagship")
+          "flagship", "pc-flagship", "hopdir", "mg-slice", "mg-flagship")
 
 
 def main(argv=None):
@@ -589,10 +771,12 @@ def main(argv=None):
     import mugiq_tpu_torch  # noqa: F401  (pins full-f32 GEMMs)
     from mugiq_tpu_torch.kernels.contract import (covariant_displace,
                                                   loop_contract)
+    from mugiq_tpu_torch.kernels.hop_dir import dslash_hop_dir
     from mugiq_tpu_torch.kernels.parity import parity_hop
     from mugiq_tpu_torch.kernels.wilson import wilson_m
 
-    counters = [wilson_m, loop_contract, covariant_displace, parity_hop]
+    counters = [wilson_m, loop_contract, covariant_displace, parity_hop,
+                dslash_hop_dir]
     dev = torch.device("cuda")
     stats = {}
     launches = {}
@@ -617,8 +801,17 @@ def main(argv=None):
             got = phase_flagship(counters)
             for k in ("wilson_m", "loop_contract", "covariant_displace"):
                 launches[k] = got[k]
-        else:
+        elif phase == "pc-flagship":
             launches["parity_hop"] = phase_pc_flagship(counters)["parity_hop"]
+        elif phase == "hopdir":
+            if "copy_GBps" not in stats:
+                phase_kernels(dev, stats)
+            phase_hopdir(dev, stats)
+        elif phase == "mg-slice":
+            phase_mg_slice(dev)
+        else:
+            launches["dslash_hop_dir"] = phase_mg_flagship(
+                counters)["dslash_hop_dir"]
         torch.cuda.empty_cache()
         say(f"phase {phase}: {time.perf_counter() - tp:.1f} s")
     say(f"chip_smoke: phases {','.join(phases)} passed in "

@@ -1,10 +1,11 @@
 """Shared CLI flags (port of the flags mugiq_tpu.cli.common gives the
-production loop and the eigensolve), plus --device."""
+production loop and the eigensolve, with the multigrid flags), plus
+--device."""
 
 import argparse
 
 from ..params import (DslashType, EigOperator, EigParam, GaugeParam,
-                      InvertParam, MassNormalization, Spectrum)
+                      InvertParam, MassNormalization, MGParam, Spectrum)
 
 
 def add_lattice_args(p: argparse.ArgumentParser):
@@ -62,6 +63,50 @@ def add_eig_args(p: argparse.ArgumentParser):
     g.add_argument("--eig-vec-infile", default="",
                    help="load eigenvectors/values instead of solving "
                         "(checkpoint resume)")
+
+
+def add_mg_args(p: argparse.ArgumentParser):
+    g = p.add_argument_group("multigrid")
+    g.add_argument("--mugiq-use-mg", choices=["yes", "no"], default="no")
+    g.add_argument("--mugiq-compute-coarse", choices=["yes", "no"],
+                   default="yes",
+                   help="accepted for compatibility: the production MG path "
+                        "always eigensolves the coarse operator")
+    g.add_argument("--mg-levels", type=int, default=2)
+    g.add_argument("--mg-block-size", type=int, nargs="+",
+                   default=[4, 4, 4, 4], metavar="B",
+                   help="geo block per level, 4 ints per level")
+    g.add_argument("--mg-nvec", type=int, nargs="+", default=[24])
+    g.add_argument("--mg-setup-iters", type=int, default=50)
+    g.add_argument("--mg-vec-outfile", default="",
+                   help="save the built MG hierarchy (transfer bases + "
+                        "Galerkin stencils, npz; mg_vec_outfile analog)")
+    g.add_argument("--mg-vec-infile", default="",
+                   help="load a saved hierarchy instead of running the "
+                        "null-vector setup (mg_vec_infile analog)")
+
+
+def build_mg_param(args) -> MGParam:
+    n_coarse = args.mg_levels - 1
+    if n_coarse < 1:
+        raise ValueError(f"--mg-levels {args.mg_levels}: at least 2")
+    bs = args.mg_block_size
+    if len(bs) == 4:
+        blocks = [tuple(bs)] * n_coarse
+    elif len(bs) == 4 * n_coarse:
+        blocks = [tuple(bs[4 * i:4 * i + 4]) for i in range(n_coarse)]
+    else:
+        raise ValueError(f"--mg-block-size needs 4 ints per level "
+                         f"({4 * n_coarse}), got {len(bs)}")
+    nv = args.mg_nvec
+    if len(nv) == 1:
+        nv = nv * n_coarse
+    elif len(nv) != n_coarse:
+        raise ValueError(f"--mg-nvec needs 1 or {n_coarse} values")
+    return MGParam(n_level=args.mg_levels, geo_block_size=blocks,
+                   n_vec=list(nv), setup_iters=args.mg_setup_iters,
+                   vec_outfile=args.mg_vec_outfile,
+                   vec_infile=args.mg_vec_infile)
 
 
 def build_params(args):

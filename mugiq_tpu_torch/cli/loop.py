@@ -8,6 +8,14 @@ mugiq_tpu.cli.loop.
         --displace-entry-string +z:1 --loop-write-mom-space yes \
         --loop-mom-space-filename loops.h5 --production
 
+--mugiq-use-mg yes runs the MG-deflated loop with the JAX CLI's MG flags:
+
+    python -m mugiq_tpu_torch.cli.loop --dims 32 32 32 64 --gauge random \
+        --gauge-seed 1 --kappa 0.12 --eig-nev 8 --eig-nkr 24 --eig-tol 1e-6 \
+        --eig-max-restarts 120 --mugiq-use-mg yes --mg-levels 2 \
+        --mg-block-size 4 4 4 4 --mg-nvec 12 --mg-setup-iters 8 \
+        --link-precision bf16 --production
+
 The port has only the production path; --production is accepted so that
 the JAX CLI's production invocations run unchanged.
 """
@@ -17,7 +25,8 @@ import sys
 import time
 
 from .common import (add_dirac_args, add_eig_args, add_lattice_args,
-                     build_params, read_momenta_file)
+                     add_mg_args, build_mg_param, build_params,
+                     read_momenta_file)
 
 
 def parse_args(argv=None):
@@ -28,6 +37,7 @@ def parse_args(argv=None):
     add_lattice_args(p)
     add_dirac_args(p)
     add_eig_args(p)
+    add_mg_args(p)
     g = p.add_argument_group("loop")
     g.add_argument("--momenta-filename", default="",
                    help="file with 'px py pz' per line; default p=0 only")
@@ -48,6 +58,9 @@ def parse_args(argv=None):
     g.add_argument("--link-precision", choices=("f32", "bf16"),
                    default="f32",
                    help="link/clover storage precision (arithmetic f32)")
+    g.add_argument("--loop-coarse-ulocal", choices=["yes", "no"],
+                   default="no",
+                   help="the coarse-space ultra-local loop (not ported)")
     args = p.parse_args(argv)
     if args.loop_do_nonlocal == "yes" and not args.displace_entry_string:
         p.error("--loop-do-nonlocal yes requires --displace-entry-string")
@@ -62,6 +75,10 @@ def run(argv=None):
     """Parse, run the production loop, log as the JAX CLI does; returns the
     ProductionResult."""
     args = parse_args(argv)
+    if args.loop_coarse_ulocal == "yes":
+        raise NotImplementedError("--loop-coarse-ulocal is not ported to "
+                                  "mugiq_tpu_torch yet (ROADMAP queue 1, "
+                                  "item 12)")
     from ..io.gauge_io import load_gauge_np, plaquette
     from ..lattice import LatticeGeometry
     from ..params import FTSign, LoopParam
@@ -70,6 +87,8 @@ def run(argv=None):
 
     device = resolve_device(args.device)
     gp, ip, ep = build_params(args)
+    use_mg = args.mugiq_use_mg == "yes"
+    mg = build_mg_param(args) if use_mg else None
     geom = LatticeGeometry(gp.dims)
     U = load_gauge_np(args.gauge, geom, seed=args.gauge_seed)
     momenta = (read_momenta_file(args.momenta_filename)
@@ -97,6 +116,7 @@ def run(argv=None):
 
     t0 = time.time()
     res = compute_loop_production(U, gp, ip, ep, lp, U_loop_np=U_loop,
+                                  use_mg=use_mg, mg=mg,
                                   precision=args.link_precision,
                                   seed=ep.seed, device=device)
     for i, (lam, r) in enumerate(zip(res.evals, res.resids)):

@@ -132,7 +132,7 @@ def load_gauge_np(spec: str, geom: LatticeGeometry,
     return U
 
 
-def plaquette(U_np: np.ndarray, device="cpu") -> tuple:
+def plaquette(U_np: np.ndarray, device="cuda") -> tuple:
     """Average plaquette (total, spatial, temporal), 1 at U = 1 (plaqQuda,
     tests/loop.cpp:895-898), computed in complex128 on `device`."""
     u = torch.from_numpy(np.ascontiguousarray(U_np, np.complex128)).to(device)

@@ -56,27 +56,35 @@ def _clinks(U, Y):
     return torch.complex(u[:, :, 0], u[:, :, 1])
 
 
+def hop_dir_complex(p, u, mu: int, sign: int, dagger: bool):
+    """One directed hop on complex fields, with torch.roll neighbours and
+    the full 4x4 spin projector: (1 - g_mu) U_mu(x) p(x+mu) for sign +1,
+    (1 + g_mu) U_mu(x-mu)^dag p(x-mu) for sign -1; dagger (D^dag = g5 D g5)
+    swaps the projectors.  p [T, 4, 3, Z, Y, X], u [T, 4, 3, 3, Z, Y, X]."""
+    g = torch.as_tensor(gamma_matrices()[mu], dtype=p.dtype, device=p.device)
+    eye = torch.eye(4, dtype=p.dtype, device=p.device)
+    ax = _AXIS[mu]
+    um = u[:, mu]                                       # [T, 3, 3, Z, Y, X]
+    if sign > 0:
+        v = torch.einsum("tabzyx,tsbzyx->tsazyx", um, torch.roll(p, -1, ax))
+        sg = 1.0 if dagger else -1.0
+    else:
+        v = torch.einsum("tbazyx,tsbzyx->tsazyx",
+                         torch.roll(um, 1, ax).conj(), torch.roll(p, 1, ax))
+        sg = -1.0 if dagger else 1.0
+    return torch.einsum("rs,tsazyx->trazyx", eye + sg * g, v)
+
+
 def dslash_hop_plain(psi, U, dagger: bool, Y: int):
-    """The hopping term D psi (dagger: D^dag psi) in plain PyTorch, with
-    torch.roll neighbours and full 4x4 spin projectors (1 -/+ g_mu); links
-    upcast to f32.  psi [T, 24, Z, Y*X], U [T, 4, 18, Z, Y*X] ->
-    [T, 24, Z, Y*X] f32."""
+    """The hopping term D psi (dagger: D^dag psi) in plain PyTorch, the sum
+    of hop_dir_complex over the 8 directed hops; links upcast to f32.
+    psi [T, 24, Z, Y*X], U [T, 4, 18, Z, Y*X] -> [T, 24, Z, Y*X] f32."""
     p = _cspinor(psi, Y)
     u = _clinks(U, Y)
-    g = torch.as_tensor(gamma_matrices(), dtype=p.dtype, device=p.device)
-    eye = torch.eye(4, dtype=p.dtype, device=p.device)
-    # D^dag swaps the projectors (g5 D g5)
-    sf, sb = (1.0, -1.0) if dagger else (-1.0, 1.0)
     hop = torch.zeros_like(p)
     for mu in range(4):
-        ax = _AXIS[mu]
-        um = u[:, mu]                                   # [T, 3, 3, Z, Y, X]
-        fwd = torch.einsum("tabzyx,tsbzyx->tsazyx", um,
-                           torch.roll(p, -1, ax))
-        bwd = torch.einsum("tbazyx,tsbzyx->tsazyx",
-                           torch.roll(um, 1, ax).conj(), torch.roll(p, 1, ax))
-        hop += torch.einsum("rs,tsazyx->trazyx", eye + sf * g[mu], fwd)
-        hop += torch.einsum("rs,tsazyx->trazyx", eye + sb * g[mu], bwd)
+        for sign in (1, -1):
+            hop += hop_dir_complex(p, u, mu, sign, dagger)
     return _rspinor(hop)
 
 

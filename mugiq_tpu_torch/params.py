@@ -98,6 +98,27 @@ class EigParam:
 
 
 @dataclass
+class MGParam:
+    """Multigrid parameters (subset of QudaMultigridParam).
+
+    geo_block_size[lev] aggregates fine dims (x,y,z,t); n_vec[lev] is the
+    number of null vectors; spin aggregation on the finest level is chiral
+    2-blocking, coarser levels keep 2 spins (tests/eigensolve.cpp:469-492).
+    vec_outfile saves the built hierarchy (transfer bases and Galerkin
+    stencils); vec_infile loads one instead of running the setup
+    (mg_vec_outfile / mg_vec_infile, tests/eigensolve.cpp:584-590).
+    """
+    n_level: int = 2
+    geo_block_size: List[Tuple[int, int, int, int]] = field(
+        default_factory=lambda: [(4, 4, 4, 4)])
+    n_vec: List[int] = field(default_factory=lambda: [24])
+    setup_iters: int = 50            # null-vector smoothing CG iterations
+    setup_seed: int = 7
+    vec_outfile: str = ""
+    vec_infile: str = ""
+
+
+@dataclass
 class LoopParam:
     """Disconnected-loop parameters (mirrors MugiqLoopParam, mugiq.h:28-47)."""
     momenta: Sequence[Tuple[int, int, int]] = field(

@@ -18,7 +18,7 @@ def map_gamma_g5_planar(data: torch.Tensor) -> torch.Tensor:
     return data[:, :, idx] * s.reshape(1, 1, 16, 1, 1, 1, 1)
 
 
-def phase_matrix_planar(geom, momenta, ft_sign, device="cpu",
+def phase_matrix_planar(geom, momenta, ft_sign, device="cuda",
                         dtype=torch.float32) -> torch.Tensor:
     """Host-built phases exp(i ft_sign 2 pi p.x / L) as [2, Z, Y, X, P]."""
     mom = np.asarray(list(momenta), dtype=np.int64).reshape(-1, 3)

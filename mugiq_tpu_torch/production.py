@@ -7,7 +7,10 @@ Eigensolve of MdagM (or MMdag) of the full operator, or of the packed
 even-odd preconditioned one, with thick-restart Lanczos, optionally
 Chebyshev-filtered and then Rayleigh-Ritz refined; the computeEvals tail;
 the measurement on the kernel layout (K2 contraction, K3 displacement
-chains); the g5 map, momentum-projection GEMM and HDF5 output.  Complex
+chains); the g5 map, momentum-projection GEMM and HDF5 output.  The
+MG-deflated loop (use_mg=True, _compute_loop_production_mg) eigensolves
+the Galerkin coarse operator of an MG hierarchy (mg/) and prolongates its
+eigenvectors to the fine lattice before the same measurement.  Complex
 setup (gauge phases, clover) stays in numpy on the host.
 
 Options outside this slice raise NotImplementedError naming the ROADMAP
@@ -28,8 +31,10 @@ from .lattice import LatticeGeometry
 from .layout import kernel_gauge_np
 from .schur_kernel import SchurDiracKernelPacked
 from .loop import LoopComputeParam
+from .mg.rc_mg import MGEnvRC
 from .params import (DslashType, EigOperator, EigParam, GaugeParam,
-                     InvertParam, LoopParam, MassNormalization, parse_disp_str)
+                     InvertParam, LoopParam, MassNormalization, MGParam,
+                     parse_disp_str)
 from .phase import (map_gamma_g5_planar, momentum_project_production,
                     phase_matrix_planar)
 from .utils import log, phase_timer, resolve_device
@@ -180,21 +185,36 @@ def compute_loop_production(U_np: np.ndarray, gauge: GaugeParam,
                             loop_param: LoopParam,
                             U_loop_np: Optional[np.ndarray] = None,
                             keep_pos: bool = False,
-                            use_mg: bool = False, mesh=None,
-                            precision: str = "f32",
+                            use_mg: bool = False, mg: MGParam = None,
+                            mesh=None, precision: str = "f32",
                             basis_precision: str = "f32",
-                            seed: int = 1234,
+                            seed: int = 1234, mg_setup: str = "auto",
                             device="cuda") -> ProductionResult:
     """Deflated disconnected loops on one device: eigensolve, measurement
-    on the kernel layout, g5 map + momentum projection + HDF5."""
-    if use_mg:
-        _not_ported("the MG-deflated production path (use_mg=True)",
-                    "item 11")
+    on the kernel layout, g5 map + momentum projection + HDF5.
+
+    use_mg=True eigensolves the Galerkin coarse operator of the MG
+    hierarchy that `mg` describes and prolongates its eigenvectors (the
+    reference's computeCoarse path).  Its fine level is the kernel-layout
+    formulation at every volume (mg_setup "auto" or "kernel"); the JAX
+    package's "host", "split" and "agg" setups are TPU workarounds."""
     if mesh is not None:
         _not_ported("the sharded production path (mesh)", "item 14")
     if loop_param.write_pos_space_hdf5:
         _not_ported("the position-space HDF5 writer", "item 4")
     dev = resolve_device(device)
+    if use_mg:
+        if mg_setup not in ("auto", "kernel"):
+            raise NotImplementedError(
+                f"mg_setup={mg_setup!r} is a TPU workaround that is not "
+                f"ported (ROADMAP queue 1, 'Not ported'); the kernel "
+                f"formulation serves every volume")
+        if basis_precision != "f32":
+            log("note: basis_precision is ignored on the MG-deflated path "
+                "(the coarse-operator basis is small)")
+        return _compute_loop_production_mg(U_np, gauge, inv, eig, loop_param,
+                                           mg, U_loop_np, keep_pos, seed,
+                                           precision, dev)
     geom = LatticeGeometry(gauge.dims)
     cp = LoopComputeParam.build(geom, loop_param)
     res, evals, sigma, rs = compute_evecs_production(
@@ -206,6 +226,72 @@ def compute_loop_production(U_np: np.ndarray, gauge: GaugeParam,
     U_meas = U_loop_np if U_loop_np is not None else np.asarray(U_np)
     data_mom, pos_np = _measure_production_kernel(
         geom, loop_param, cp, evecs, sigma, U_meas, keep_pos)
+    return ProductionResult(
+        evals=evals, sigma=sigma, resids=np.asarray(rs),
+        data_mom=data_mom, data_pos=pos_np,
+        converged=res.converged, n_restarts=res.n_restarts)
+
+
+def _compute_loop_production_mg(U_np, gauge, inv, eig, loop_param, mg,
+                                U_loop_np, keep_pos, seed, precision,
+                                device) -> ProductionResult:
+    """MG-deflated loops: the hierarchy (null vectors smoothed with K1,
+    kernel-layout transfer, Galerkin stencils probed with K5), an unfiltered
+    thick-restart Lanczos of the coarsest MdagM, the computeEvals tail on
+    the coarse operator, prolongation of the coarse evecs to the fine
+    kernel layout, then the measurement of the non-MG path."""
+    if mg is None:
+        raise ValueError("use_mg requires MGParam")
+    geom = LatticeGeometry(gauge.dims)
+    cp = LoopComputeParam.build(geom, loop_param)
+    with phase_timer("operator-setup"):
+        fast_op = build_kernel_dirac(U_np, gauge, inv, precision=precision,
+                                     device=device)
+    log("MG setup on the device (kernel-layout transfer/Galerkin)")
+    with phase_timer("mg-setup"):
+        if mg.vec_infile:
+            env = MGEnvRC.load(mg.vec_infile, fast_op, mg, device=device)
+        else:
+            env = MGEnvRC.build(fast_op, mg)
+            if mg.vec_outfile:
+                env.save(mg.vec_outfile)
+    coarse = env.coarsest_op
+
+    rng = np.random.default_rng(seed)
+    v0 = torch.from_numpy(rng.standard_normal(coarse.field_shape).astype(
+        np.float32)).to(device)
+    if eig.use_poly_acc:
+        log("note: the Chebyshev filter (--eig-use-poly-acc) is ignored on "
+            "the MG-deflated path: the coarse eigensolve runs unfiltered")
+    with phase_timer("eigensolve"):
+        res = lanczos_hermitian_realpair(
+            coarse.MdagM, v0, n_ev=eig.n_ev, n_kr=eig.n_kr,
+            re_im_axis=v0.ndim - 1, tol=eig.tol,
+            max_restarts=eig.max_restarts, which=eig.spectrum.value,
+            check_interval=eig.check_interval)
+    log(f"production MG eigensolve: converged={res.converged} "
+        f"restarts={res.n_restarts}")
+
+    scale = (0.25 / inv.kappa ** 2
+             if inv.mass_normalization == MassNormalization.MASS else 1.0)
+    lams, rs = [], []
+    for v in res.evecs:
+        w = coarse.MdagM(v) * scale
+        lam = torch.sum(v * w) / torch.sum(v * v)
+        lams.append(float(lam))
+        rs.append(float(torch.linalg.vector_norm(lam * v - w)))
+    evals = np.asarray(lams)
+    sigma = np.sqrt(np.maximum(evals, 0.0))
+
+    with phase_timer("prolongate"):
+        fine = env.prolongate_batch(res.evecs)
+    # the hierarchy and the fine operator are dead past the prolongation:
+    # free them before the measurement
+    del env, fast_op, coarse
+    res.evecs = None
+    U_meas = U_loop_np if U_loop_np is not None else np.asarray(U_np)
+    data_mom, pos_np = _measure_production_kernel(
+        geom, loop_param, cp, fine, sigma, U_meas, keep_pos)
     return ProductionResult(
         evals=evals, sigma=sigma, resids=np.asarray(rs),
         data_mom=data_mom, data_pos=pos_np,

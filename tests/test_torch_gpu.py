@@ -7,14 +7,16 @@ device).  The file imports no JAX, so it runs on the GPU machine:
 
 Small odd extents exercise every periodic wrap of the index arithmetic;
 K6 needs even ones (the checkerboard), distinct so that no two axes can be
-confused.  Tolerances are f32 summation order only: K1 and K6 2e-5 of max
-|out| (~100 terms per output, half-spinor vs full-projector form, K6's
-twin at full volume), K2 2e-6, K3 1e-6.
+confused.  Tolerances are f32 summation order only: K1, K5 and K6 2e-5 of max
+|out| (up to ~100 terms per output, half-spinor vs full-projector form,
+K6's twin at full volume), K2 2e-6, K3 1e-6.
 """
 
 import pytest
 import torch
 
+from mugiq_tpu_torch.kernels.hop_dir import (dslash_hop_dir,
+                                             dslash_hop_dir_plain)
 from mugiq_tpu_torch.kernels.parity import parity_hop, parity_hop_plain
 from mugiq_tpu_torch.kernels.contract import (
     covariant_displace, covariant_displace_plain, loop_contract,
@@ -100,4 +102,23 @@ def test_parity_hop_matches_twin_on_card(prec, mode, dagger, parity_out):
     got = parity_hop(psi, Uo, Ui, Y, parity_out, dagger, **kw)
     torch.cuda.synchronize()
     assert parity_hop.launches == n0 + 1
+    assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("dagger", [False, True])
+@pytest.mark.parametrize("dstr", DIRS)
+def test_hop_dir_matches_twin_on_card(prec, dagger, dstr):
+    dev = cuda_device()
+    T, Z, Y, X = 4, 3, 5, 6
+    dt = torch.bfloat16 if prec == "bf16" else torch.float32
+    psi = torch.from_numpy(rand((T, 24, Z, Y * X), 1)).to(dev)
+    U = torch.from_numpy(rand((T, 4, 18, Z, Y * X), 2, 0.5)).to(dev).to(dt)
+    mu, sgn = parse_disp_str(dstr)
+    ref = dslash_hop_dir_plain(psi, U, mu, sgn, dagger, Y)
+    n0 = dslash_hop_dir.launches
+    got = dslash_hop_dir(psi, U, mu, sgn, dagger, Y)
+    torch.cuda.synchronize()
+    assert dslash_hop_dir.launches == n0 + 1
     assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())

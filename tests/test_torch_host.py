@@ -37,7 +37,8 @@ _IMPORT_ALL = (
     "import mugiq_tpu_torch, mugiq_tpu_torch.production, "
     "mugiq_tpu_torch.cli.loop, mugiq_tpu_torch.cli.eigensolve, "
     "mugiq_tpu_torch.layout, mugiq_tpu_torch.schur_kernel, "
-    "mugiq_tpu_torch.kernels.parity, mugiq_tpu_torch.io.gauge_io, "
+    "mugiq_tpu_torch.kernels.parity, mugiq_tpu_torch.kernels.hop_dir, "
+    "mugiq_tpu_torch.mg, mugiq_tpu_torch.io.gauge_io, "
     "mugiq_tpu_torch.io.lime_io, mugiq_tpu_torch.io.hdf5io, chip_smoke\n")
 
 
@@ -202,11 +203,11 @@ def test_plaquette_matches_jax():
     from mugiq_tpu.fields import plaquette_np
 
     U = gauge_io.load_gauge_np("weak:0.4", GEOM, seed=2)
-    np.testing.assert_allclose(gauge_io.plaquette(U), plaquette_np(U),
-                               rtol=1e-12)
+    np.testing.assert_allclose(gauge_io.plaquette(U, device="cpu"),
+                               plaquette_np(U), rtol=1e-12)
     unit = gauge_io.load_gauge_np("unit", GEOM)
-    np.testing.assert_allclose(gauge_io.plaquette(unit), (1.0, 1.0, 1.0),
-                               rtol=1e-14)
+    np.testing.assert_allclose(gauge_io.plaquette(unit, device="cpu"),
+                               (1.0, 1.0, 1.0), rtol=1e-14)
 
 
 def test_clover_blocks_match_jax():
@@ -275,3 +276,40 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         covariant_displace(b, torch.empty((2, 4, 18, 2, 4), device=m), 0, 1,
                            2)
+
+
+def test_device_parameters_default_to_cuda():
+    """Every public function and method of the port that takes a `device`
+    with a default defaults to the card: nothing runs on the CPU unless
+    the caller asks for it."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import mugiq_tpu_torch
+
+    def public(mod):
+        for name, obj in vars(mod).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) \
+                    != mod.__name__:
+                continue
+            if inspect.isfunction(obj):
+                yield f"{mod.__name__}.{name}", obj
+            elif inspect.isclass(obj):
+                for mname, m in vars(obj).items():
+                    m = getattr(m, "__func__", m)
+                    if not mname.startswith("_") and inspect.isfunction(m):
+                        yield f"{mod.__name__}.{name}.{mname}", m
+
+    defaults = {}
+    for info in pkgutil.walk_packages(mugiq_tpu_torch.__path__,
+                                      "mugiq_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        for qual, fn in public(mod):
+            p = inspect.signature(fn).parameters.get("device")
+            if p is not None and p.default is not inspect.Parameter.empty:
+                defaults[qual] = p.default
+    assert {"mugiq_tpu_torch.io.gauge_io.plaquette",
+            "mugiq_tpu_torch.phase.phase_matrix_planar",
+            "mugiq_tpu_torch.mg.rc_mg.MGEnvRC.load"} <= set(defaults)
+    assert {k: v for k, v in defaults.items() if v != "cuda"} == {}

@@ -144,7 +144,8 @@ def test_eigensolve_options_outside_slice_raise(kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(use_mg=True), dict(mesh=object()),
+    dict(use_mg=True, mesh=object()), dict(mesh=object()),
+    dict(use_mg=True, mg_setup="host"),
     dict(loop_param=LoopParam(write_pos_space_hdf5=True))])
 def test_loop_options_outside_slice_raise(kw):
     kw = dict(kw)
