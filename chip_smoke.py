@@ -33,9 +33,25 @@ Phases (each prints its own lines and raises on failure):
             the twins on the CPU;
   mg-flagship  the MG-deflated 32^3x64 loop through the CLI (the settings
             of scripts/time_mg32.py plus one displacement), held to the
-            coarse eigenvalues the JAX package recorded.
-Each of the three flagships is a main path: every launch counter is set to
-0 just before it and read just after.  The last two lines are
+            coarse eigenvalues the JAX package recorded;
+  halo      K7a and K7b (the halo-extended Wilson and parity hops of one
+            rank's block) against their twins at the 32^3x64 shapes of
+            rank 0 of a --mesh 2 1 and a --mesh 2 2 2 grid, every variant,
+            with times, bounds and the interior / boundary launch times;
+            every rank's block concatenated tied to K1 and K6 on the
+            global field;
+  mesh-slice  the 8^3x16 loop over --mesh 2 2 2 (8 ranks on the card,
+            gloo) and the pc eigensolve over --mesh 2 1, held to the same
+            runs on one device;
+  mesh-flagship  the 32^3x64 loop flagship over --mesh 1 1 (one rank,
+            NCCL) and --mesh 2 1 (two ranks: gloo with host-staged halos
+            on a one-card machine, NCCL too where there are two cards),
+            held to the single-device flagship.
+The ranks of a sharded run are processes of ``python -m
+torch.distributed.run`` running this script with --mesh-worker.
+Each flagship is a main path: every launch counter is set to 0 just
+before it and read just after (in every rank for the sharded ones).  The
+last two lines are
 {"kernels": [...]} and {"ok": true, "device": {...}}.  Without CUDA, or
 outside a checkout of the repository, it exits nonzero and prints no
 result.
@@ -53,7 +69,9 @@ import tempfile
 import time
 
 # The flagship invocation of artifacts/flagship32_cli.json, with the gauge
-# built in-process by the same generator (numpy default_rng(1) + SU(3) QR).
+# built by the same generator (numpy default_rng(1) + SU(3) QR): once per
+# run of this script, handed to every 32^3x64 CLI run as an exact ILDG copy
+# (with_flagship_gauge).
 FLAGSHIP_ARGS = [
     "--dims", "32", "32", "32", "64", "--gauge", "random", "--gauge-seed", "1",
     "--kappa", "0.12", "--eig-nev", "8", "--eig-nkr", "24", "--eig-tol", "1e-5",
@@ -99,7 +117,10 @@ MG_MAX_RESIDUAL = 1e-5
 # the same inputs and differ only in summation order (K1, K6: half-spinor
 # vs full projector form, ~100 terms per output; K2: n*3 terms; K3: 3).
 TOL = {"wilson_m": 2e-5, "loop_contract": 2e-5, "covariant_displace": 1e-5,
-       "parity_hop": 2e-5, "dslash_hop_dir": 2e-5, "identity": 1e-5}
+       "parity_hop": 2e-5, "dslash_hop_dir": 2e-5, "identity": 1e-5,
+       "wilson_m_halo": 2e-5, "parity_hop_halo": 2e-5,
+       # K7 blocks vs K1 / K6 on the global field: the same per-site code
+       "slab": 1e-6}
 
 TPU_KERNEL = {
     "wilson_m": "mugiq_tpu/pallas/dslash_kernel.py:395",
@@ -107,6 +128,9 @@ TPU_KERNEL = {
     "covariant_displace": "mugiq_tpu/pallas/contract_kernel.py:192",
     "parity_hop": "mugiq_tpu/pallas/schur_kernel.py:350",
     "dslash_hop_dir": "mugiq_tpu/pallas/dslash_kernel.py:736",
+    "wilson_m_halo": "mugiq_tpu/parallel/shard_dslash.py:112 (and :151, "
+                     ":199, :314, :357)",
+    "parity_hop_halo": "mugiq_tpu/pallas/schur_kernel.py:423 (and :486)",
 }
 SOURCE = {
     "wilson_m": "mugiq_tpu_torch/kernels/csrc/wilson_m.cu",
@@ -114,7 +138,24 @@ SOURCE = {
     "covariant_displace": "mugiq_tpu_torch/kernels/csrc/contract.cu",
     "parity_hop": "mugiq_tpu_torch/kernels/csrc/parity_hop.cu",
     "dslash_hop_dir": "mugiq_tpu_torch/kernels/csrc/hop_dir.cu",
+    "wilson_m_halo": "mugiq_tpu_torch/kernels/csrc/wilson_m_halo.cu",
+    "parity_hop_halo": "mugiq_tpu_torch/kernels/csrc/parity_hop_halo.cuh",
 }
+
+# The 8^3x16 slices of the slice and pc-slice phases as CLI flags, for the
+# mesh-slice phase
+SLICE_ARGS = [
+    "--dims", "8", "8", "8", "16", "--gauge", "weak:0.5", "--gauge-seed", "1",
+    "--kappa", "0.13", "--eig-nev", "4", "--eig-nkr", "24", "--eig-tol", "1e-6",
+    "--eig-max-restarts", "100", "--eig-use-poly-acc", "--eig-poly-deg", "12",
+    "--eig-amin", "0.15", "--loop-do-nonlocal", "yes",
+    "--displace-entry-string", "+z:1,2;-t:1", "--production"]
+PC_SLICE_ARGS = [
+    "--dims", "8", "8", "8", "16", "--gauge", "weak:0.5", "--gauge-seed", "1",
+    "--kappa", "0.13", "--eig-nev", "4", "--eig-nkr", "24", "--eig-tol", "1e-6",
+    "--eig-max-restarts", "100", "--eig-use-poly-acc", "--eig-poly-deg", "12",
+    "--eig-amin", str(PC_SLICE_AMIN), "--solve-type", "direct-pc",
+    "--production"]
 
 # T, Z, Y, X of the kernel-vs-twin phases: the flagships' lattice
 KERNEL_SHAPE = (64, 32, 32, 32)
@@ -134,6 +175,36 @@ def card_line():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+# the scratch directory of one run (main makes and removes it) and the
+# flagship gauge written there on first use
+WORK = {"dir": None, "gauge": None}
+
+
+def with_flagship_gauge(args):
+    """args with their generated `--gauge` (random at 32^3x64) replaced by
+    an ILDG file (f64, an exact copy) of that gauge: the host generator
+    (numpy default_rng + SU(3) QR of 8.4 M matrices) takes ~27 s, so this
+    run builds it once and every 32^3x64 CLI run reads the file."""
+    if WORK["gauge"] is None:
+        from mugiq_tpu_torch.io.gauge_io import load_gauge_np
+        from mugiq_tpu_torch.io.lime_io import write_ildg_gauge
+        from mugiq_tpu_torch.lattice import LatticeGeometry
+        dims = [int(v) for v in args[args.index("--dims") + 1:][:4]]
+        spec = args[args.index("--gauge") + 1]
+        seed = int(args[args.index("--gauge-seed") + 1])
+        t0 = time.perf_counter()
+        U = load_gauge_np(spec, LatticeGeometry(dims), seed=seed)
+        path = os.path.join(WORK["dir"], "flagship_gauge.lime")
+        write_ildg_gauge(path, U)
+        del U
+        WORK["gauge"] = path
+        say(f"flagship gauge: {spec}, seed {seed}, {dims}: built and written "
+            f"as ILDG f64 in {time.perf_counter() - t0:.1f} s")
+    a = list(args)
+    a[a.index("--gauge") + 1] = WORK["gauge"]
+    return a
 
 
 def cuda_ms(fn, reps, warmup=2):
@@ -195,9 +266,15 @@ def phase_build():
         f"nvcc): {time.perf_counter() - t0:.2f} s")
     for name in build.sources():
         build.load(name)
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  ptxas {name}: {line.strip()}")
+        log = build.build_log(name)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                               log))
+        secs = re.search(r"nvcc ([0-9.]+) s", log)
+        say(f"  {name}.cu: nvcc {secs.group(1) if secs else '(built before)'}"
+            f" s; ptxas: {len(regs)} kernels, {min(regs, default=0)}-"
+            f"{max(regs, default=0)} registers, {spill} bytes of spill "
+            f"stores")
 
 
 def phase_kernels(dev, stats):
@@ -506,8 +583,11 @@ def run_main_path(name, run, argv, counters):
         launches = {k.__name__: k.launches for k in counters}
     finally:
         logger.removeHandler(handler)
+    text = "\n".join(msgs)
     phases = {k: float(v) for k, v in re.findall(
-        r"PROFILE\s+([\w-]+):\s+([0-9.]+)s", "\n".join(msgs))}
+        r"PROFILE\s+([\w-]+):\s+([0-9.]+)s", text)}
+    for v in re.findall(r"Time for solution = ([0-9.]+) s", text):
+        phases["solution"] = float(v)
     say(f"{name}: wall {wall:.2f} s, phases {json.dumps(phases)}")
     say(f"{name}: launches {json.dumps(launches)}")
     return res, wall, phases, launches
@@ -541,7 +621,8 @@ def phase_flagship(counters):
         with open(mom, "w") as f:
             f.write(FLAGSHIP_MOMENTA)
         h5 = os.path.join(tmp, "loops32.h5")
-        argv = FLAGSHIP_ARGS + ["--momenta-filename", mom]
+        argv = with_flagship_gauge(FLAGSHIP_ARGS) + ["--momenta-filename",
+                                                      mom]
         if have_h5:
             argv += ["--loop-write-mom-space", "yes",
                      "--loop-mom-space-filename", h5]
@@ -571,13 +652,13 @@ def phase_flagship(counters):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"flagship run")
-    return launches
+    return launches, res
 
 
 def phase_pc_flagship(counters):
     from mugiq_tpu_torch.cli import eigensolve as cli_eig
 
-    argv = PC_FLAGSHIP_ARGS
+    argv = with_flagship_gauge(PC_FLAGSHIP_ARGS)
     say("pc flagship CLI: python -m mugiq_tpu_torch.cli.eigensolve "
         + " ".join(argv))
     (res, evals, sigma, resids), _, _, launches = run_main_path(
@@ -713,7 +794,8 @@ def phase_mg_flagship(counters):
         mom = os.path.join(tmp, "moms.txt")
         with open(mom, "w") as f:
             f.write(MG_FLAGSHIP_MOMENTA)
-        argv = MG_FLAGSHIP_ARGS + ["--momenta-filename", mom]
+        argv = with_flagship_gauge(MG_FLAGSHIP_ARGS) + ["--momenta-filename",
+                                                         mom]
         say("mg flagship CLI: python -m mugiq_tpu_torch.cli.loop "
             + " ".join(argv))
         res, _, _, launches = run_main_path("mg flagship", cli_loop.run,
@@ -746,15 +828,438 @@ def phase_mg_flagship(counters):
     return launches
 
 
+def phase_halo(dev, stats):
+    """K7a and K7b against their twins on the card at the 32^3x64 shapes of
+    rank 0 of a 2 1 and a 2 2 2 grid, every variant; the interior and
+    boundary launches; every rank's block tied to K1 / K6."""
+    import torch
+    from mugiq_tpu_torch.kernels.parity import (parity_hop, parity_hop_halo,
+                                                parity_hop_halo_plain)
+    from mugiq_tpu_torch.kernels.wilson import (FLOP_PER_SITE, wilson_m,
+                                                wilson_m_halo,
+                                                wilson_m_halo_plain)
+    from mugiq_tpu_torch.parallel.mesh import LatticeMesh
+    from mugiq_tpu_torch.schur_kernel import pack_parity, pack_parity_gauge
+
+    T, Z, Y, X = KERNEL_SHAPE
+    dims = (X, Y, Z, T)
+    kappa = 0.12
+    g = torch.Generator(device=dev).manual_seed(4)
+    psi = torch.randn((T, 24, Z, Y * X), generator=g, device=dev)
+    U = torch.randn((T, 4, 18, Z, Y * X), generator=g, device=dev) * 0.5
+    A = torch.randn((T, 144, Z, Y * X), generator=g, device=dev) * 0.2
+    Ut = torch.roll(U[:, 3], 1, 0)
+
+    def k7a_inputs(m, prec):
+        dt = torch.float32 if prec == "f32" else torch.bfloat16
+        ze, ye = m.z_ext, m.y_ext
+        return (m.ext_block(psi, t=True, z=ze, y=ye),
+                m.ext_block(U.to(dt), t=False, z=ze, y=ye),
+                m.ext_block(Ut.to(dt), t=False, z=ze, y=ye),
+                m.local_block(A.to(dt)).contiguous())
+
+    worst = (0.0, 0.0)
+    for mesh in ((2, 1), (2, 2, 2)):
+        m = LatticeMesh(mesh, dims, rank=0, device=dev)
+        ze, ye, Yl, Tl = m.z_ext, m.y_ext, m.local["y"], m.local["t"]
+        sites = Tl * m.local["z"] * Yl * X
+        tag = " ".join(map(str, mesh))
+        for prec in ("f32", "bf16"):
+            pe, Ue, Ute, Al = k7a_inputs(m, prec)
+            out = None
+            for clover in (False, True):
+                for dagger in (False, True):
+                    A144 = Al if clover else None
+                    ref = wilson_m_halo_plain(pe, Ue, Ute, A144, kappa,
+                                              dagger, Yl, ze, ye)
+                    got = wilson_m_halo(pe, Ue, Ute, A144, kappa, dagger, Yl,
+                                        ze, ye)
+                    err, rel = compare("wilson_m_halo", got, ref)
+                    worst = max(worst, (rel, err))
+                    del ref
+                    out = torch.empty_like(got)
+
+                    def run(rows=None):
+                        return wilson_m_halo(pe, Ue, Ute, A144, kappa, dagger,
+                                             Yl, ze, ye, rows=rows, out=out)
+
+                    ms = cuda_ms(run, 20)
+                    pms = cuda_ms(lambda: wilson_m_halo_plain(
+                        pe, Ue, Ute, A144, kappa, dagger, Yl, ze, ye), 3, 1)
+                    # least traffic: the extended spinor, the extended links
+                    # and t-links, clover, the output, each once
+                    moved = nbytes(pe, Ue, Ute, A144, got)
+                    b = bound(moved, (FLOP_PER_SITE + (576 if clover else 0))
+                              * sites)
+                    say(f"K7a wilson_m_halo mesh {tag} rank 0 {prec} "
+                        f"clover={int(clover)} dagger={int(dagger)}: rel err "
+                        f"{rel:.2e} (abs {err:.2e}, tol "
+                        f"{TOL['wilson_m_halo']:.0e})  kernel {ms:.3f} ms "
+                        f"(bound {b['bound_ms']:.3f} ms by {b['bound_by']}, "
+                        f"{b['bound_ms'] / ms:.2f} of it)  twin {pms:.3f} ms")
+                    if (mesh, prec, clover, dagger) == ((2, 1), "f32", False,
+                                                        False):
+                        stats["wilson_m_halo"] = {"ms": ms, "plain_ms": pms,
+                                                  "library_ms": None, **b}
+                        ims = cuda_ms(lambda: run((1, Tl - 2, 1)), 20)
+                        bms = cuda_ms(lambda: run((0, 2, Tl - 1)), 20)
+                        say(f"K7a mesh {tag} rank 0 f32 Wilson M: interior "
+                            f"launch (rows 1..{Tl - 2}) {ims:.3f} ms, "
+                            f"boundary launch (rows 0, {Tl - 1}) {bms:.3f} ms, "
+                            f"single pass {ms:.3f} ms")
+                    del got
+            del pe, Ue, Ute, Al, out
+            torch.cuda.empty_cache()
+    stats["wilson_m_halo"]["max_abs_err"] = worst[1]
+
+    # every rank's K7a block concatenated equals K1 on the global field
+    for mesh in ((2, 1), (2, 2, 2)):
+        for dagger in (False, True):
+            ref = wilson_m(psi, U, A, kappa, dagger, Y)
+            got = torch.empty_like(ref)
+            for r in range(LatticeMesh(mesh, dims).world):
+                m = LatticeMesh(mesh, dims, rank=r, device=dev)
+                pe, Ue, Ute, Al = (m.ext_block(psi, t=True, z=m.z_ext,
+                                               y=m.y_ext),
+                                   m.ext_block(U, t=False, z=m.z_ext,
+                                               y=m.y_ext),
+                                   m.ext_block(Ut, t=False, z=m.z_ext,
+                                               y=m.y_ext),
+                                   m.local_block(A).contiguous())
+                m.local_block(got)[...] = wilson_m_halo(
+                    pe, Ue, Ute, Al, kappa, dagger, m.local["y"], m.z_ext,
+                    m.y_ext)
+            _, rel = compare("slab", got, ref)
+            say(f"slab tie K7a (mesh {' '.join(map(str, mesh))}, every "
+                f"rank) vs K1, clover dagger={int(dagger)}: rel {rel:.2e} "
+                f"(tol {TOL['slab']:.0e})")
+            del ref, got
+    del psi, A
+    torch.cuda.empty_cache()
+
+    # K7b on packed fields of the same lattice
+    Xh = X // 2
+    pin_field = torch.randn((T, 24, Z, Y * Xh), generator=g, device=dev)
+    pout = torch.randn((T, 24, Z, Y * Xh), generator=g, device=dev)
+    Ap = torch.randn((T, 144, Z, Y * Xh), generator=g, device=dev) * 0.2
+    k2 = kappa ** 2
+    worst = (0.0, 0.0)
+    for mesh in ((2, 1), (2, 2, 2)):
+        m = LatticeMesh(mesh, dims, rank=0, device=dev)
+        ze, ye, Yl, Tl = m.z_ext, m.y_ext, m.local["y"], m.local["t"]
+        sites = Tl * m.local["z"] * Yl * Xh
+        tag = " ".join(map(str, mesh))
+        pe = m.ext_block(pin_field, t=True, z=ze, y=ye)
+        po_loc = m.local_block(pout).contiguous()
+        for prec, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            Al = m.local_block(Ap.to(dt)).contiguous()
+            variants = (("pass1", 1, {}), ("pass1+A_post", 1, dict(A_post=Al)),
+                        ("pass2", 0, dict(kappa2=k2, psi_out=po_loc)),
+                        ("pass2+A_comb", 0, dict(kappa2=k2, psi_out=po_loc,
+                                                 A_comb=Al)))
+            for vtag, po, kw in variants:
+                Uo = pack_parity_gauge(U.to(dt), Y, po)
+                Ui = pack_parity_gauge(U.to(dt), Y, 1 - po)
+                Uoe = m.ext_block(Uo, t=False, z=ze, y=ye)
+                Uie = m.ext_block(Ui, t=False, z=ze, y=ye)
+                Ute = m.ext_block(torch.roll(Ui[:, 3], 1, 0), t=False, z=ze,
+                                  y=ye)
+                del Uo, Ui
+                for dagger in (False, True):
+                    args = (pe, Uoe, Uie, Ute, Yl, po, dagger, ze, ye)
+                    ref = parity_hop_halo_plain(*args, **kw)
+                    got = parity_hop_halo(*args, **kw)
+                    err, rel = compare("parity_hop_halo", got, ref)
+                    worst = max(worst, (rel, err))
+                    del ref
+                    out = torch.empty_like(got)
+                    ms = cuda_ms(lambda: parity_hop_halo(*args, out=out,
+                                                         **kw), 20)
+                    pms = cuda_ms(lambda: parity_hop_halo_plain(*args, **kw),
+                                  3, 1)
+                    clover = "A_post" in kw or "A_comb" in kw
+                    moved = nbytes(pe, Uoe, Uie, Ute, got, kw.get("psi_out"),
+                                   kw.get("A_post"), kw.get("A_comb"))
+                    b = bound(moved, (FLOP_PER_SITE + (576 if clover else 0))
+                              * sites)
+                    say(f"K7b parity_hop_halo mesh {tag} rank 0 {prec} {vtag} "
+                        f"dagger={int(dagger)}: rel err {rel:.2e} (abs "
+                        f"{err:.2e}, tol {TOL['parity_hop_halo']:.0e})  "
+                        f"kernel {ms:.3f} ms (bound {b['bound_ms']:.3f} ms "
+                        f"by {b['bound_by']}, {b['bound_ms'] / ms:.2f} of "
+                        f"it)  twin {pms:.3f} ms")
+                    if (mesh, prec, vtag, dagger) == ((2, 1), "f32", "pass1",
+                                                      False):
+                        stats["parity_hop_halo"] = {
+                            "ms": ms, "plain_ms": pms, "library_ms": None,
+                            **b}
+                    del got, out
+                del Uoe, Uie, Ute
+                torch.cuda.empty_cache()
+        del pe
+    stats["parity_hop_halo"]["max_abs_err"] = worst[1]
+
+    # every rank's K7b block concatenated equals K6 on the global field
+    A_glob = Ap
+    for mesh in ((2, 1), (2, 2, 2)):
+        for vtag, po, kw in (("pass1+A_post", 1, dict(A_post=A_glob)),
+                             ("pass2+A_comb", 0, dict(kappa2=k2, psi_out=pout,
+                                                      A_comb=A_glob))):
+            Uo, Ui = pack_parity_gauge(U, Y, po), pack_parity_gauge(U, Y,
+                                                                    1 - po)
+            Uti = torch.roll(Ui[:, 3], 1, 0)
+            for dagger in (False, True):
+                ref = parity_hop(pin_field, Uo, Ui, Y, po, dagger, **kw)
+                got = torch.empty_like(ref)
+                for r in range(LatticeMesh(mesh, dims).world):
+                    m = LatticeMesh(mesh, dims, rank=r, device=dev)
+                    ext = dict(z=m.z_ext, y=m.y_ext)
+                    loc = {k: (m.local_block(v).contiguous()
+                               if torch.is_tensor(v) else v)
+                           for k, v in kw.items()}
+                    m.local_block(got)[...] = parity_hop_halo(
+                        m.ext_block(pin_field, t=True, **ext),
+                        m.ext_block(Uo, t=False, **ext),
+                        m.ext_block(Ui, t=False, **ext),
+                        m.ext_block(Uti, t=False, **ext), m.local["y"], po,
+                        dagger, m.z_ext, m.y_ext, **loc)
+                _, rel = compare("slab", got, ref)
+                say(f"slab tie K7b (mesh {' '.join(map(str, mesh))}, every "
+                    f"rank) vs K6, {vtag} dagger={int(dagger)}: rel "
+                    f"{rel:.2e} (tol {TOL['slab']:.0e})")
+                del ref, got
+            del Uo, Ui, Uti
+            torch.cuda.empty_cache()
+
+
+def mesh_worker(out, spec):
+    """One rank of run_mesh's launch: run each job's CLI as a main path
+    and write the rank's results to OUT/<job>.rank<r>.npz."""
+    import numpy as np
+    import torch.distributed as dist
+    from pathlib import Path
+
+    from mugiq_tpu_torch.cli import eigensolve as cli_eig
+    from mugiq_tpu_torch.cli import loop as cli_loop
+    from mugiq_tpu_torch.parallel import halo
+    from mugiq_tpu_torch.parallel.distributed import shutdown_distributed
+
+    counters = kernel_counters()
+    for job in json.loads(Path(spec).read_text()):
+        loop = job["mode"] == "loop"
+        halo.reset_totals()
+        got, wall, phases, launches = run_main_path(
+            job["name"], cli_loop.run if loop else cli_eig.run, job["argv"],
+            counters)
+        if loop:
+            res, data_mom = got, got.data_mom
+            evals, sigma, resids = res.evals, res.sigma, res.resids
+        else:
+            res, evals, sigma, resids = got
+            data_mom = np.zeros(0)
+        np.savez(Path(out) / f"{job['name']}.rank{dist.get_rank()}.npz",
+                 evals=np.asarray(evals), sigma=np.asarray(sigma),
+                 resids=np.asarray(resids), data_mom=data_mom,
+                 n_restarts=res.n_restarts, converged=res.converged,
+                 wall=wall, phases=json.dumps(phases),
+                 launches=json.dumps(launches),
+                 halo=json.dumps(halo.TOTALS), backend=dist.get_backend(),
+                 world=dist.get_world_size())
+    shutdown_distributed()
+
+
+def run_mesh(name, mesh, jobs, backend, timeout=900):
+    """Launch one sharded run: `python -m torch.distributed.run` with one
+    process per rank of `mesh`, each running mesh_worker on `jobs` [(job,
+    mode, argv)]; returns {job: [per-rank results]}.  Fails if any rank
+    fails."""
+    import numpy as np
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    n = 1
+    for v in mesh.split():
+        n *= int(v)
+    tmp = tempfile.mkdtemp(prefix="mugiq_mesh_", dir=here)
+    try:
+        spec = os.path.join(tmp, "jobs.json")
+        with open(spec, "w") as f:
+            json.dump([{"name": j, "mode": mode,
+                        "argv": argv + ["--mesh", *mesh.split(),
+                                        "--dist-backend", backend]}
+                       for j, mode, argv in jobs], f)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(n), os.path.abspath(__file__),
+               "--mesh-worker", tmp, spec]
+        say(f"{name}: {n} rank(s), {backend}: " + " ".join(cmd[1:6])
+            + " chip_smoke.py --mesh-worker ...")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=here, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              timeout=timeout)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            say(proc.stdout[-8000:])
+            raise AssertionError(f"{name}: a rank failed (launcher rc "
+                                 f"{proc.returncode})")
+        say(f"{name}: launcher wall {wall:.2f} s")
+        out = {}
+        for j, _, _ in jobs:
+            out[j] = []
+            for r in range(n):
+                with np.load(os.path.join(tmp, f"{j}.rank{r}.npz")) as z:
+                    d = {k: z[k] for k in z.files}
+                for k in ("phases", "launches", "halo"):
+                    d[k] = json.loads(str(d[k]))
+                out[j].append(d)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_ranks(name, ranks, ref, mom_tol, launched, not_launched):
+    """Every rank against the single-device reference `ref` (evals,
+    data_mom or None, restarts): converged, the same restarts, evals 1e-5
+    relative, data_mom mom_tol of max, residuals under MAX_RESIDUAL; the
+    path's kernels launched on every rank, the single-device stencils
+    not."""
+    import numpy as np
+    evals, data_mom, restarts = ref
+    for r, d in enumerate(ranks):
+        ev = float(np.max(np.abs(d["evals"] - evals) / np.abs(evals)))
+        msg = (f"{name} rank {r}: converged={bool(d['converged'])} restarts "
+               f"{int(d['n_restarts'])} (single device {restarts}), evals rel "
+               f"{ev:.2e} (tol 1e-5), max resid {float(d['resids'].max()):.2e}")
+        ok = (bool(d["converged"]) and int(d["n_restarts"]) == restarts
+              and ev <= 1e-5 and float(d["resids"].max()) < MAX_RESIDUAL)
+        if data_mom is not None:
+            dm = float(np.max(np.abs(d["data_mom"] - data_mom))
+                       / np.max(np.abs(data_mom)))
+            msg += f", data_mom rel {dm:.2e} (tol {mom_tol:.0e})"
+            ok = ok and dm <= mom_tol
+        if r == 0:
+            msg += (f"; wall {float(d['wall']):.2f} s, phases "
+                    f"{json.dumps(d['phases'])}")
+        say(msg)
+        if not ok:
+            raise AssertionError(f"{name} rank {r} disagrees with the single "
+                                 f"device")
+        for k in launched:
+            if d["launches"][k] <= 0:
+                raise AssertionError(f"{name} rank {r}: {k} not launched")
+        for k in not_launched:
+            if d["launches"][k] != 0:
+                raise AssertionError(f"{name} rank {r}: launched {k}")
+
+
+def phase_mesh_slice(counters):
+    """The 8^3x16 loop over --mesh 2 2 2 and the pc eigensolve over --mesh
+    2 1 (ranks sharing the card: gloo), held to the same runs on one
+    device; returns K7b's launches on rank 0 of the pc run."""
+    from mugiq_tpu_torch.cli import eigensolve as cli_eig
+    from mugiq_tpu_torch.cli import loop as cli_loop
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="mugiq_smoke_", dir=here)
+    try:
+        mom = os.path.join(tmp, "moms.txt")
+        with open(mom, "w") as f:
+            f.write(FLAGSHIP_MOMENTA)
+        loop_args = SLICE_ARGS + ["--momenta-filename", mom]
+        r, _, _, _ = run_main_path("mesh slice, one device", cli_loop.run,
+                                   loop_args, counters)
+        ref_loop = (r.evals, r.data_mom, r.n_restarts)
+        (r, ev, _, _), _, _, _ = run_main_path(
+            "mesh pc slice, one device", cli_eig.run, PC_SLICE_ARGS, counters)
+        ref_pc = (ev, None, r.n_restarts)
+        got = run_mesh("mesh slice loop --mesh 2 2 2", "2 2 2",
+                       [("loop", "loop", loop_args)], "gloo")["loop"]
+        check_ranks("mesh slice loop 2 2 2", got, ref_loop, 1e-3,
+                    ("wilson_m_halo", "loop_contract", "covariant_displace"),
+                    ("wilson_m",))
+        got = run_mesh("mesh slice pc --mesh 2 1", "2 1",
+                       [("pc", "eig", PC_SLICE_ARGS)], "gloo")["pc"]
+        check_ranks("mesh slice pc 2 1", got, ref_pc, 1e-3,
+                    ("parity_hop_halo",), ("parity_hop", "wilson_m"))
+        return got[0]["launches"]["parity_hop_halo"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_mesh_flagship(flagship):
+    """The 32^3x64 loop flagship through the CLI over --mesh 1 1 (one rank,
+    NCCL) and --mesh 2 1 (two ranks: gloo on a one-card machine; NCCL too
+    where there are two cards), held to the single-device flagship;
+    returns K7a's launches of the one-rank run."""
+    import numpy as np
+    import torch
+
+    ref = (flagship.evals, flagship.data_mom, flagship.n_restarts)
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="mugiq_smoke_", dir=here)
+    runs = [("1 1", "nccl")]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("2 1", "nccl"))
+    else:
+        say(f"mesh flagship: NCCL between separate cards not exercised "
+            f"({torch.cuda.device_count()} card); two ranks share the card "
+            f"over gloo")
+    runs.append(("2 1", "gloo"))
+    launches = None
+    try:
+        mom = os.path.join(tmp, "moms.txt")
+        with open(mom, "w") as f:
+            f.write(FLAGSHIP_MOMENTA)
+        argv = with_flagship_gauge(FLAGSHIP_ARGS) + ["--momenta-filename",
+                                                      mom]
+        for mesh, backend in runs:
+            name = f"mesh flagship --mesh {mesh} ({backend})"
+            got = run_mesh(name, mesh, [("loop", "loop", argv)], backend,
+                           timeout=1200)["loop"]
+            check_ranks(name, got, ref, 1e-3,
+                        ("wilson_m_halo", "loop_contract",
+                         "covariant_displace"), ("wilson_m",))
+            for r, d in enumerate(got):
+                k7a = d["launches"]["wilson_m_halo"]
+                apps = k7a // 2          # interior + boundary per application
+                h = d["halo"]
+                say(f"{name} rank {r}/{int(d['world'])}: backend "
+                    f"{d['backend']}, wall {float(d['wall']):.2f} s, phases "
+                    f"{json.dumps(d['phases'])}, K7a launches {k7a} "
+                    f"({apps} applications), halo {h['bytes'] / 1e9:.3f} GB "
+                    f"sent in {h['exchanges']} exchanges "
+                    f"({h['bytes'] / max(apps, 1) / 1e6:.3f} MB per "
+                    f"application), {h['seconds']:.2f} s host time in the "
+                    f"exchange calls")
+            if mesh == "1 1":
+                launches = got[0]["launches"]["wilson_m_halo"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def kernel_counters():
+    from mugiq_tpu_torch.kernels.contract import (covariant_displace,
+                                                  loop_contract)
+    from mugiq_tpu_torch.kernels.hop_dir import dslash_hop_dir
+    from mugiq_tpu_torch.kernels.parity import parity_hop, parity_hop_halo
+    from mugiq_tpu_torch.kernels.wilson import wilson_m, wilson_m_halo
+    return [wilson_m, loop_contract, covariant_displace, parity_hop,
+            dslash_hop_dir, wilson_m_halo, parity_hop_halo]
+
+
 PHASES = ("build", "kernels", "parity", "identity", "slice", "pc-slice",
-          "flagship", "pc-flagship", "hopdir", "mg-slice", "mg-flagship")
+          "flagship", "pc-flagship", "hopdir", "mg-slice", "mg-flagship",
+          "halo", "mesh-slice", "mesh-flagship")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
-    phases = ap.parse_args(argv).phases.split(",")
+    ap.add_argument("--mesh-worker", nargs=2, metavar=("OUTDIR", "JOBS"),
+                    help=argparse.SUPPRESS)
+    opts = ap.parse_args(argv)
+    phases = opts.phases.split(",")
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
@@ -769,51 +1274,20 @@ def main(argv=None):
         return 1
     sys.path.insert(0, here)
     import mugiq_tpu_torch  # noqa: F401  (pins full-f32 GEMMs)
-    from mugiq_tpu_torch.kernels.contract import (covariant_displace,
-                                                  loop_contract)
-    from mugiq_tpu_torch.kernels.hop_dir import dslash_hop_dir
-    from mugiq_tpu_torch.kernels.parity import parity_hop
-    from mugiq_tpu_torch.kernels.wilson import wilson_m
+    if opts.mesh_worker:
+        mesh_worker(*opts.mesh_worker)
+        return 0
 
-    counters = [wilson_m, loop_contract, covariant_displace, parity_hop,
-                dslash_hop_dir]
+    counters = kernel_counters()
     dev = torch.device("cuda")
     stats = {}
     launches = {}
     t0 = time.perf_counter()
-    for phase in phases:
-        tp = time.perf_counter()
-        if phase == "build":
-            phase_build()
-        elif phase == "kernels":
-            phase_kernels(dev, stats)
-        elif phase == "parity":
-            if "copy_GBps" not in stats:
-                phase_kernels(dev, stats)
-            phase_parity(dev, stats)
-        elif phase == "identity":
-            phase_identity(dev)
-        elif phase == "slice":
-            phase_slice(dev)
-        elif phase == "pc-slice":
-            phase_pc_slice(dev)
-        elif phase == "flagship":
-            got = phase_flagship(counters)
-            for k in ("wilson_m", "loop_contract", "covariant_displace"):
-                launches[k] = got[k]
-        elif phase == "pc-flagship":
-            launches["parity_hop"] = phase_pc_flagship(counters)["parity_hop"]
-        elif phase == "hopdir":
-            if "copy_GBps" not in stats:
-                phase_kernels(dev, stats)
-            phase_hopdir(dev, stats)
-        elif phase == "mg-slice":
-            phase_mg_slice(dev)
-        else:
-            launches["dslash_hop_dir"] = phase_mg_flagship(
-                counters)["dslash_hop_dir"]
-        torch.cuda.empty_cache()
-        say(f"phase {phase}: {time.perf_counter() - tp:.1f} s")
+    WORK["dir"] = tempfile.mkdtemp(prefix="mugiq_smoke_", dir=here)
+    try:
+        run_phases(phases, dev, counters, stats, launches)
+    finally:
+        shutil.rmtree(WORK["dir"], ignore_errors=True)
     say(f"chip_smoke: phases {','.join(phases)} passed in "
         f"{time.perf_counter() - t0:.1f} s")
     say(card_line())
@@ -825,6 +1299,46 @@ def main(argv=None):
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_phases(phases, dev, counters, stats, launches):
+    import torch
+    flagship = None
+    for phase in phases:
+        tp = time.perf_counter()
+        if phase == "build":
+            phase_build()
+        elif phase == "kernels":
+            phase_kernels(dev, stats)
+        elif phase in ("parity", "hopdir", "halo"):
+            if "copy_GBps" not in stats:
+                phase_kernels(dev, stats)
+            {"parity": phase_parity, "hopdir": phase_hopdir,
+             "halo": phase_halo}[phase](dev, stats)
+        elif phase == "identity":
+            phase_identity(dev)
+        elif phase == "slice":
+            phase_slice(dev)
+        elif phase == "pc-slice":
+            phase_pc_slice(dev)
+        elif phase in ("flagship", "mesh-flagship"):
+            if flagship is None:
+                got, flagship = phase_flagship(counters)
+                for k in ("wilson_m", "loop_contract", "covariant_displace"):
+                    launches[k] = got[k]
+            if phase == "mesh-flagship":
+                launches["wilson_m_halo"] = phase_mesh_flagship(flagship)
+        elif phase == "pc-flagship":
+            launches["parity_hop"] = phase_pc_flagship(counters)["parity_hop"]
+        elif phase == "mg-slice":
+            phase_mg_slice(dev)
+        elif phase == "mesh-slice":
+            launches["parity_hop_halo"] = phase_mesh_slice(counters)
+        else:
+            launches["dslash_hop_dir"] = phase_mg_flagship(
+                counters)["dslash_hop_dir"]
+        torch.cuda.empty_cache()
+        say(f"phase {phase}: {time.perf_counter() - tp:.1f} s")
 
 
 if __name__ == "__main__":

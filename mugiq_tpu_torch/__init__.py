@@ -4,7 +4,9 @@ The single-device production loop (eigensolve -> loop contraction ->
 momentum projection), its MG-deflated form (the Galerkin coarse operator
 of a multigrid hierarchy eigensolved and its eigenvectors prolongated,
 ``mg/``) and the eigensolve entry point, with the full or the packed
-even-odd preconditioned operator, on a CUDA device; the stencil kernels
+even-odd preconditioned operator, on a CUDA device, and the loop and
+eigensolve sharded over a (t, z[, y]) grid of ranks, one
+torch.distributed process each (``parallel/``); the stencil kernels
 are written by hand in CUDA C++ (``kernels/csrc``) and built with
 ``nvcc`` at first use.  Every kernel wrapper has a plain PyTorch twin that
 runs for CPU tensors, so the whole slice also runs (slowly) on the CPU.

@@ -1,6 +1,6 @@
 """Shared CLI flags (port of the flags mugiq_tpu.cli.common gives the
-production loop and the eigensolve, with the multigrid flags), plus
---device."""
+production loop and the eigensolve, with the multigrid and parallel
+flags), plus --device and --dist-backend."""
 
 import argparse
 
@@ -63,6 +63,48 @@ def add_eig_args(p: argparse.ArgumentParser):
     g.add_argument("--eig-vec-infile", default="",
                    help="load eigenvectors/values instead of solving "
                         "(checkpoint resume)")
+
+
+def add_parallel_args(p: argparse.ArgumentParser):
+    g = p.add_argument_group(
+        "parallel (the reference's --gridsize / initComms, "
+        "tests/eigensolve.cpp:683)")
+    g.add_argument("--mesh", type=int, nargs="+", default=None, metavar="N",
+                   help="rank grid over the (t, z[, y]) lattice axes, e.g. "
+                        "--mesh 2 1, one process per rank; launch with "
+                        "python -m torch.distributed.run --nproc-per-node N")
+    g.add_argument("--dist-coordinator", default=None,
+                   help="host:port of the process group's rendezvous "
+                        "(omit under torch.distributed.run)")
+    g.add_argument("--dist-num-processes", type=int, default=None)
+    g.add_argument("--dist-process-id", type=int, default=None)
+    g.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="default: nccl for cuda, gloo for cpu; ranks that "
+                        "share a card need gloo")
+
+
+def build_mesh(args, dims):
+    """Start the process group (if the flags or torch.distributed.run ask
+    for one) and build this rank's LatticeMesh; returns (mesh or None, the
+    rank's device).  Without --mesh nothing is started."""
+    from ..utils import resolve_device
+
+    if args.mesh is None:
+        return None, resolve_device(args.device)
+    from ..parallel.distributed import init_distributed
+    from ..parallel.mesh import make_lattice_mesh
+
+    dev = init_distributed(args.dist_coordinator, args.dist_num_processes,
+                           args.dist_process_id, args.dist_backend,
+                           device=args.device)
+    return make_lattice_mesh(args.mesh, dims, device=dev), dev
+
+
+def quiet_unless_primary(mesh) -> None:
+    """Only the primary rank logs (the Mugiq:, timing and PROFILE lines)."""
+    import logging
+    if mesh is not None and not mesh.is_primary:
+        logging.getLogger("mugiq_tpu_torch").setLevel(logging.WARNING)
 
 
 def add_mg_args(p: argparse.ArgumentParser):

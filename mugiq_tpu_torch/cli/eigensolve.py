@@ -8,7 +8,15 @@ mugiq_tpu.cli.eigensolve (the tests/eigensolve.cpp driver analog).
         --solve-type direct-pc --production
 
 --solve-type direct eigensolves MdagM of the full operator (K1),
-direct-pc that of the packed even-odd preconditioned operator (K6).  The
+direct-pc that of the packed even-odd preconditioned operator (K6).
+--mesh NT NZ [NY] runs the sharded solve, one process per rank, with the
+halo-extended kernels (K7a, K7b):
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m mugiq_tpu_torch.cli.eigensolve ... --solve-type direct-pc \
+        --mesh 2 1
+
+The
 port has only the production path; --production is accepted so that the
 JAX CLI's production invocations run unchanged.  Options of the JAX CLI
 that are not ported raise NotImplementedError naming their ROADMAP item.
@@ -21,7 +29,8 @@ import time
 import numpy as np
 
 from .common import (add_dirac_args, add_eig_args, add_lattice_args,
-                     build_params)
+                     add_parallel_args, build_mesh, build_params,
+                     quiet_unless_primary)
 
 
 def _not_ported(flag: str, item: str):
@@ -54,8 +63,7 @@ def parse_args(argv=None):
                    help="working precision (double not ported)")
     g.add_argument("--mugiq-use-mg", choices=["yes", "no"], default="no",
                    help="eigensolve the MG coarse operator (not ported)")
-    g.add_argument("--mesh", type=int, nargs="+", default=None, metavar="N",
-                   help="device mesh over the lattice axes (not ported)")
+    add_parallel_args(p)
     return p.parse_args(argv)
 
 
@@ -69,18 +77,17 @@ def run(argv=None):
         _not_ported("--basis-precision bf16", "item 3")
     if args.mugiq_use_mg == "yes":
         _not_ported("--mugiq-use-mg yes", "item 11")
-    if args.mesh is not None:
-        _not_ported("--mesh", "item 14")
     if args.prec == "double":
         _not_ported("--prec double", "item 9")
 
     from ..io.gauge_io import load_evecs, load_gauge_np, plaquette, save_evecs
     from ..lattice import LatticeGeometry
     from ..production import compute_evecs_production
-    from ..utils import log, print_profile, resolve_device
+    from ..utils import log, print_profile
 
-    device = resolve_device(args.device)
     gp, ip, ep = build_params(args)
+    mesh, device = build_mesh(args, gp.dims)
+    quiet_unless_primary(mesh)
     geom = LatticeGeometry(gp.dims)
     U = load_gauge_np(args.gauge, geom, seed=args.gauge_seed)
     tot, sp, tm = plaquette(U, device)
@@ -102,7 +109,7 @@ def run(argv=None):
     t0 = time.time()
     res, evals, sigma, resids = compute_evecs_production(
         U, gp, ip, ep, seed=ep.seed, precision=args.link_precision,
-        even_odd=args.solve_type == "direct-pc", device=device)
+        even_odd=args.solve_type == "direct-pc", mesh=mesh, device=device)
     if not res.converged:
         log("WARNING: production eigensolve did NOT converge to tolerance")
     for i in range(len(evals)):
@@ -114,16 +121,26 @@ def run(argv=None):
     log(f"Time for solution = {time.time() - t0:.3f} s")
     print_profile()
     if args.eig_vec_outfile:
-        save_evecs(args.eig_vec_outfile, res.evecs.cpu().numpy(), evals,
-                   sigma=sigma, resids=np.asarray(resids),
-                   attrs={"dims": str(geom.dims), "kappa": str(ip.kappa),
-                          "layout": "kernel-realpair"})
-        log(f"Eigenvectors saved to {args.eig_vec_outfile}")
+        # under a mesh the ranks' blocks are gathered and the primary
+        # writes the single-device file
+        evecs = (res.evecs if mesh is None
+                 else mesh.gather_field(res.evecs, lead=1))
+        if mesh is None or mesh.is_primary:
+            save_evecs(args.eig_vec_outfile, evecs.cpu().numpy(), evals,
+                       sigma=sigma, resids=np.asarray(resids),
+                       attrs={"dims": str(geom.dims), "kappa": str(ip.kappa),
+                              "layout": "kernel-realpair"})
+            log(f"Eigenvectors saved to {args.eig_vec_outfile}")
+        del evecs
     return res, evals, sigma, resids
 
 
 def main(argv=None):
-    run(argv)
+    from ..parallel.distributed import shutdown_distributed
+    try:
+        run(argv)
+    finally:
+        shutdown_distributed()
     return 0
 
 

@@ -16,6 +16,12 @@ mugiq_tpu.cli.loop.
         --mg-block-size 4 4 4 4 --mg-nvec 12 --mg-setup-iters 8 \
         --link-precision bf16 --production
 
+--mesh NT NZ [NY] runs the sharded loop, one process per rank (NCCL with
+a card per rank; gloo on the CPU or when ranks share a card):
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m mugiq_tpu_torch.cli.loop --dims 8 8 8 16 ... --mesh 2 1
+
 The port has only the production path; --production is accepted so that
 the JAX CLI's production invocations run unchanged.
 """
@@ -25,7 +31,8 @@ import sys
 import time
 
 from .common import (add_dirac_args, add_eig_args, add_lattice_args,
-                     add_mg_args, build_mg_param, build_params,
+                     add_mg_args, add_parallel_args, build_mesh,
+                     build_mg_param, build_params, quiet_unless_primary,
                      read_momenta_file)
 
 
@@ -38,6 +45,7 @@ def parse_args(argv=None):
     add_dirac_args(p)
     add_eig_args(p)
     add_mg_args(p)
+    add_parallel_args(p)
     g = p.add_argument_group("loop")
     g.add_argument("--momenta-filename", default="",
                    help="file with 'px py pz' per line; default p=0 only")
@@ -83,11 +91,16 @@ def run(argv=None):
     from ..lattice import LatticeGeometry
     from ..params import FTSign, LoopParam
     from ..production import compute_loop_production
-    from ..utils import log, print_profile, resolve_device
+    from ..utils import log, print_profile
 
-    device = resolve_device(args.device)
     gp, ip, ep = build_params(args)
     use_mg = args.mugiq_use_mg == "yes"
+    if use_mg and args.mesh is not None:
+        raise NotImplementedError("--mugiq-use-mg yes with --mesh is not "
+                                  "ported to mugiq_tpu_torch yet (ROADMAP "
+                                  "queue 1, item 15)")
+    mesh, device = build_mesh(args, gp.dims)
+    quiet_unless_primary(mesh)
     mg = build_mg_param(args) if use_mg else None
     geom = LatticeGeometry(gp.dims)
     U = load_gauge_np(args.gauge, geom, seed=args.gauge_seed)
@@ -116,7 +129,7 @@ def run(argv=None):
 
     t0 = time.time()
     res = compute_loop_production(U, gp, ip, ep, lp, U_loop_np=U_loop,
-                                  use_mg=use_mg, mg=mg,
+                                  use_mg=use_mg, mg=mg, mesh=mesh,
                                   precision=args.link_precision,
                                   seed=ep.seed, device=device)
     for i, (lam, r) in enumerate(zip(res.evals, res.resids)):
@@ -131,7 +144,11 @@ def run(argv=None):
 
 
 def main(argv=None):
-    run(argv)
+    from ..parallel.distributed import shutdown_distributed
+    try:
+        run(argv)
+    finally:
+        shutdown_distributed()
     return 0
 
 

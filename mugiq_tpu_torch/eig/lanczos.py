@@ -1,20 +1,25 @@
 """Chebyshev acceleration and spectral-edge estimate (port of
 mugiq_tpu.eig.lanczos.chebyshev_op / estimate_spectral_edge)."""
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
+from ..lanczos import norm
+
 
 def estimate_spectral_edge(matvec: Callable, v0: torch.Tensor,
-                           iters: int = 25) -> float:
+                           iters: int = 25,
+                           reduce: Optional[Callable] = None) -> float:
     """Upper spectral edge of a Hermitian PSD operator by power iteration,
-    padded by 10% (auto a_max for Chebyshev acceleration)."""
-    v = v0 / torch.linalg.vector_norm(v0)
+    padded by 10% (auto a_max for Chebyshev acceleration).  reduce: the
+    sum over ranks for a sharded field (lanczos_hermitian_realpair)."""
+    v = v0 / norm(v0, reduce)
     for _ in range(iters):
         w = matvec(v)
-        v = w / torch.linalg.vector_norm(w)
-    return float(torch.sum(v * matvec(v))) * 1.10
+        v = w / norm(w, reduce)
+    dot = torch.sum(v * matvec(v))
+    return float(dot if reduce is None else reduce(dot)) * 1.10
 
 
 def chebyshev_op(matvec: Callable, poly_deg: int, a_min: float,

@@ -5,13 +5,20 @@ shared library with a plain C interface, under ``mugiq_tpu_torch/_build/``
 (git-ignored).  The file name carries a hash of every source in ``csrc/``
 and of the flags, so an edited source rebuilds and an unchanged one loads
 the library already built.  Nothing is built when a module is imported.
+The ranks of a sharded run reach their first launch together: the build
+runs under a lock file in the build directory, so one process compiles
+and the others wait and load its libraries.
 """
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -56,25 +63,54 @@ def sources() -> list:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+@contextlib.contextmanager
+def _build_lock():
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names=None) -> None:
     """Compile every ``csrc/<name>.cu`` of `names` (default: all sources)
-    not built yet, one nvcc process per source, all started together."""
+    not built yet, one nvcc process per source, all started together;
+    under the build directory's lock, so concurrent processes never run
+    nvcc into it at once."""
+    names = sources() if names is None else names
+    if all(library_path(n).exists() for n in names):
+        return
+    with _build_lock():
+        _build_missing(names)
+
+
+def _build_missing(names) -> None:
     jobs = []
-    for name in sources() if names is None else names:
+    for name in names:
         so = library_path(name)
         if so.exists():
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         jobs.append((name, so, tmp, cmd, proc))
-    failed = []
-    for name, so, tmp, cmd, proc in jobs:
+    t0 = time.perf_counter()
+
+    def finish(job):
+        name, so, tmp, cmd, proc = job
         out, err = proc.communicate()
-        so.with_suffix(".log").write_text(" ".join(cmd) + "\n" + out + err)
+        return out, err, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max(len(jobs), 1)) as pool:
+        done = list(pool.map(finish, jobs))
+    failed = []
+    for (name, so, tmp, cmd, proc), (out, err, secs) in zip(jobs, done):
+        so.with_suffix(".log").write_text(
+            " ".join(cmd) + f"\nnvcc {secs:.1f} s\n" + out + err)
         if proc.returncode != 0:
             failed.append(f"nvcc failed building {name}.cu "
                           f"(rc {proc.returncode}):\n{err}")

@@ -152,3 +152,159 @@ def parity_hop(psi_in, U_out, U_in, Y: int, parity_out: int, dagger: bool,
 
 
 parity_hop.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7b: the halo-extended form of one rank's block
+# ---------------------------------------------------------------------------
+
+_fn_halo = {}
+
+
+def _entry_halo(bf16: bool):
+    """K7b's entry point for f32 or bf16 links: two sources, built in
+    parallel (csrc/parity_hop_halo.cuh says why)."""
+    if bf16 not in _fn_halo:
+        name = "parity_hop_halo_bf16" if bf16 else "parity_hop_halo"
+        fn = getattr(build.load(name), f"mugiq_{name}")
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
+                       ctypes.c_float, P]
+        fn.restype = I
+        _fn_halo[bf16] = fn
+    return _fn_halo[bf16]
+
+
+def _unpack_one(packed, Y: int, parity: int, shift: int):
+    """Full-volume field holding `packed` on its parity's sites and zero on
+    the others, for an array whose site (a, b, c) of (t, z, y) has the
+    true parity offset (a + b + c + shift) % 2 (a halo-extended block
+    starts one row before the block, whose origin is even)."""
+    from ..schur_kernel import unpack_parities
+
+    zero = torch.zeros_like(packed)
+    if (parity + shift) % 2 == 0:
+        return unpack_parities(packed, zero, Y)
+    return unpack_parities(zero, packed, Y)
+
+
+def parity_hop_halo_plain(psi_ext, U_out, U_in, Ut_in_shift, Y: int,
+                          parity_out: int, dagger: bool, z_ext: bool,
+                          y_ext: bool, kappa2=None, psi_out=None, A_post=None,
+                          A_comb=None, rows=None):
+    """Plain PyTorch twin of K7b on the given rows, formulated at full
+    volume so that it shares no index arithmetic with the kernel: unpack
+    the extended input spinor (zero on the output parity), both link
+    parities and the shifted t-links, apply the halo-extended full-volume
+    hop (wilson.dslash_hop_halo_plain), keep the output parity of each
+    row, then apply A_post or the combine.  Returns [R, 24, Zl, Y*Xh]."""
+    from ..schur_kernel import pack_parity
+    from .wilson import dslash_hop_halo_plain, halo_rows, halo_shapes
+
+    _mode(kappa2, psi_out, A_post, A_comb)
+    Tl = U_out.shape[0]
+    _, Zp, Yp, Xh = halo_shapes(psi_ext, Y, z_ext, y_ext, Tl)
+    r = halo_rows(rows, Tl)
+    pin = 1 - parity_out
+    o = int(z_ext) + int(y_ext)        # z/y origin of the extended arrays
+    psi = _unpack_one(psi_ext, Yp, pin, 1 + o)
+    links = [_unpack_one(u.reshape(Tl, 72, Zp, Yp * Xh), Yp, par, o)
+             for u, par in ((U_out, parity_out), (U_in, pin))]
+    U = (links[0] + links[1]).reshape(Tl, 4, 18, Zp, Yp * 2 * Xh)
+    Ut = _unpack_one(Ut_in_shift, Yp, pin, 1 + o)
+    full = dslash_hop_halo_plain(psi, U, Ut, dagger, Y, z_ext, y_ext, rows)
+    hop = torch.cat([pack_parity(full[k:k + 1], Y, (parity_out + t) % 2)
+                     for k, t in enumerate(r)])
+    ri = torch.as_tensor(r, device=hop.device)
+    if A_post is not None:
+        hop = clover_apply_plain(A_post[ri], hop)
+    if kappa2 is None:
+        return hop
+    pe = psi_out[ri]
+    diag = pe.float() if A_comb is None else clover_apply_plain(A_comb[ri],
+                                                                pe)
+    return diag - kappa2 * hop
+
+
+def parity_hop_halo(psi_ext, U_out, U_in, Ut_in_shift, Y: int,
+                    parity_out: int, dagger: bool, z_ext: bool, y_ext: bool,
+                    kappa2=None, psi_out=None, A_post=None, A_comb=None,
+                    rows=None, out=None):
+    """K7b: K6's hop from the input parity (1 - parity_out) to the output
+    parity, on the given rows of one rank's block, from its halo-extended
+    input-parity spinor.
+
+    psi_ext [Tl+2, 24, Zp, Yp*Xh] f32 (Zp = Zl+2 if z_ext, Yp = Y+2 if
+    y_ext); U_out / U_in [Tl, 4, 18, Zp, Yp*Xh] links based at output- /
+    input-parity sites with their z/y halos (f32 or bf16); Ut_in_shift
+    [Tl, 18, Zp, Yp*Xh] the input-parity t-links of global t - 1;
+    psi_out, A_post, A_comb interior [Tl, *, Zl, Y*Xh]; the modes as
+    parity_hop's.  The block's origin must have even t + z + y.  rows
+    (t0, nrows, tstep) or None for all; out [Tl, 24, Zl, Y*Xh] (rows
+    outside the launch are left as they are).  CUDA tensors launch the
+    kernel, CPU tensors run the twin."""
+    from .wilson import halo_rows, halo_shapes
+
+    if parity_out not in (0, 1):
+        raise ValueError(f"parity_hop_halo: parity_out must be 0 or 1: "
+                         f"{parity_out}")
+    mode = _mode(kappa2, psi_out, A_post, A_comb)
+    Tl = U_out.shape[0]
+    Zl, Zp, Yp, Xh = halo_shapes(psi_ext, Y, z_ext, y_ext, Tl)
+    if Tl % 2 or Zl % 2 or Y % 2:
+        raise ValueError(f"parity_hop_halo: the even-odd checkerboard needs "
+                         f"even block extents, got T={Tl} Z={Zl} Y={Y}")
+    r = halo_rows(rows, Tl)
+    oshape = (Tl, 24, Zl, Y * Xh)
+    if psi_ext.device.type == "cpu":
+        res = parity_hop_halo_plain(psi_ext, U_out, U_in, Ut_in_shift, Y,
+                                    parity_out, dagger, z_ext, y_ext, kappa2,
+                                    psi_out, A_post, A_comb, rows)
+        if out is None and rows is None:
+            return res
+        if out is None:
+            out = torch.zeros(oshape, dtype=torch.float32)
+        out[r] = res
+        return out
+    if psi_ext.device.type != "cuda":
+        raise ValueError(f"parity_hop_halo: no kernel for device "
+                         f"{psi_ext.device}")
+    dev = psi_ext.device
+    f32 = (torch.float32,)
+    build.require(psi_ext, "psi_ext", (Tl + 2, 24, Zp, Yp * Xh), f32, dev)
+    build.require(U_out, "U_out", (Tl, 4, 18, Zp, Yp * Xh),
+                  (torch.float32, torch.bfloat16), dev)
+    build.require(U_in, "U_in", U_out.shape, (U_out.dtype,), dev)
+    build.require(Ut_in_shift, "Ut_in_shift", (Tl, 18, Zp, Yp * Xh),
+                  (U_out.dtype,), dev)
+    for name, a in (("A_post", A_post), ("A_comb", A_comb)):
+        if a is not None:
+            build.require(a, name, (Tl, 144, Zl, Y * Xh), (U_out.dtype,), dev)
+    if psi_out is not None:
+        build.require(psi_out, "psi_out", oshape, f32, dev)
+    if out is None:
+        out = torch.empty(oshape, dtype=torch.float32, device=dev)
+    build.require(out, "out", oshape, f32, dev)
+    if out.data_ptr() == psi_ext.data_ptr() or (
+            psi_out is not None and out.data_ptr() == psi_out.data_ptr()):
+        raise ValueError("parity_hop_halo: out must alias neither psi_ext "
+                         "nor psi_out")
+
+    def ptr(a):
+        return None if a is None else a.data_ptr()
+
+    t0, n, step = (0, Tl, 1) if rows is None else rows
+    ext = 2 if y_ext else int(z_ext)
+    with torch.cuda.device(dev):
+        rc = _entry_halo(U_out.dtype == torch.bfloat16)(
+            psi_ext.data_ptr(), U_out.data_ptr(), U_in.data_ptr(),
+            Ut_in_shift.data_ptr(), ptr(A_post), ptr(psi_out), ptr(A_comb),
+            out.data_ptr(), Zl, Y, Xh, int(parity_out), int(t0), int(n),
+            int(step), ext, int(dagger), mode, float(kappa2 or 0.0),
+            build.stream_handle(dev))
+    build.check(rc, "parity_hop_halo")
+    parity_hop_halo.launches += 1
+    return out
+
+
+parity_hop_halo.launches = 0

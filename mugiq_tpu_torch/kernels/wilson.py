@@ -147,3 +147,183 @@ def wilson_m(psi, U, A144, kappa: float, dagger: bool, Y: int, out=None):
 
 
 wilson_m.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7a: the halo-extended form of one rank's block
+# ---------------------------------------------------------------------------
+
+_fn_halo = None
+
+
+def _entry_halo():
+    global _fn_halo
+    if _fn_halo is None:
+        fn = build.load("wilson_m_halo").mugiq_wilson_m_halo
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float,
+                       I, I, I, P]
+        fn.restype = I
+        _fn_halo = fn
+    return _fn_halo
+
+
+def halo_rows(rows, Tl: int) -> list:
+    """The output rows of a launch: rows = (t0, nrows, tstep) gives
+    t0 + k*tstep for k < nrows; None gives every row 0..Tl-1."""
+    if rows is None:
+        return list(range(Tl))
+    t0, n, step = (int(v) for v in rows)
+    out = [t0 + k * step for k in range(n)]
+    if n < 1 or min(out) < 0 or max(out) >= Tl:
+        raise ValueError(f"rows {rows} outside the block's {Tl} t-rows")
+    return out
+
+
+def halo_shapes(psi_ext, Y: int, z_ext: bool, y_ext: bool, Tl: int):
+    """(Zl, Zp, Yp, W) of a halo-extended field [Tl+2, C, Zp, Yp*W] whose
+    interior y extent is Y."""
+    if y_ext and not z_ext:
+        raise ValueError("a y-extended block is z-extended too (the JAX 3D "
+                         "form)")
+    Tp, _, Zp, YWp = psi_ext.shape
+    Yp = Y + 2 if y_ext else Y
+    if Tp != Tl + 2 or YWp % Yp:
+        raise ValueError(f"extended field {tuple(psi_ext.shape)} does not fit "
+                         f"Tl={Tl}, Y={Y}, y_ext={y_ext}")
+    return (Zp - 2 if z_ext else Zp), Zp, Yp, YWp // Yp
+
+
+def _interior(a, z_ext: bool, y_ext: bool, Yp: int):
+    """The interior sites of [R, C, Zp, Yp*W] -> [R, C, Zl, Yl*W]."""
+    R, C, Zp, YWp = a.shape
+    a = a.reshape(R, C, Zp, Yp, YWp // Yp)
+    if z_ext:
+        a = a[:, :, 1:-1]
+    if y_ext:
+        a = a[:, :, :, 1:-1]
+    return a.reshape(R, C, a.shape[2], -1)
+
+
+def dslash_hop_halo_plain(psi_ext, U, Ut_shift, dagger: bool, Y: int,
+                          z_ext: bool, y_ext: bool, rows=None):
+    """The hopping term at the interior sites of the given rows of a block,
+    from halo-extended inputs, in plain PyTorch: neighbours by slicing the
+    halo rows where an axis is extended and by torch.roll where it is not;
+    the eight hops stacked, explicit products and sums (no batched GEMM),
+    so that every output element's arithmetic is the same for any row set.
+    psi_ext [Tl+2, 24, Zp, Yp*X], U [Tl, 4, 18, Zp, Yp*X], Ut_shift
+    [Tl, 18, Zp, Yp*X] (U_t of global t-1) -> [R, 24, Zl, Y*X] f32."""
+    Tl = U.shape[0]
+    _, _, Yp, _ = halo_shapes(psi_ext, Y, z_ext, y_ext, Tl)
+    r = torch.as_tensor(halo_rows(rows, Tl), device=psi_ext.device)
+    p = _cspinor(psi_ext, Yp)                       # [Tl+2, 4, 3, Zp, Yp, X]
+    pm, pc, pp = p[r], p[r + 1], p[r + 2]
+    u = _clinks(U[r], Yp)                           # [R, 4, 3, 3, Zp, Yp, X]
+    R, _, Zp, YXp = Ut_shift[r].shape
+    ut = Ut_shift[r].float().reshape(R, 2, 3, 3, Zp, Yp, YXp // Yp)
+    ut = torch.complex(ut[:, 0], ut[:, 1])          # [R, 3, 3, Zp, Yp, X]
+
+    def at(a, d=(0, 0, 0)):
+        """a at the interior sites displaced by d = (dz, dy, dx)."""
+        for dim, s, ext in ((-3, d[0], z_ext), (-2, d[1], y_ext),
+                            (-1, d[2], False)):
+            if ext:
+                a = a.narrow(dim, 1 + s, a.shape[dim] - 2)
+            elif s:
+                a = torch.roll(a, -s, dim)
+        return a
+
+    # the eight directed hops at once: neighbour spinors, the links that
+    # multiply them (adjoint for backward hops), spin projectors
+    fwd = ((0, 0, 1), (0, 1, 0), (1, 0, 0))
+    nbr = ([at(pc, d) for d in fwd] + [at(pp)]
+           + [at(pc, tuple(-v for v in d)) for d in fwd] + [at(pm)])
+    lnk = ([at(u[:, mu]) for mu in range(4)]
+           + [at(u[:, mu], tuple(-v for v in d)).transpose(1, 2).conj()
+              for mu, d in enumerate(fwd)] + [at(ut).transpose(1, 2).conj()])
+    g = torch.as_tensor(gamma_matrices(), dtype=p.dtype, device=p.device)
+    eye = torch.eye(4, dtype=p.dtype, device=p.device)
+    sf = 1.0 if dagger else -1.0                    # forward projector sign
+    P = torch.cat([eye + sf * g, eye - sf * g])     # [8, 4, 4]
+    V = torch.stack(nbr)                            # [8, R, 4, 3, Zl, Yl, X]
+    L = torch.stack(lnk)                            # [8, R, 3, 3, Zl, Yl, X]
+    # explicit products and sums: sum_b L[a, b] V[s, b], then sum_s P[r, s]
+    w = (L.unsqueeze(2) * V.unsqueeze(3)).sum(4)
+    h = (P.reshape(8, 1, 4, 4, 1, 1, 1, 1) * w.unsqueeze(2)).sum(3)
+    return _rspinor(h.sum(0))
+
+
+def wilson_m_halo_plain(psi_ext, U, Ut_shift, A144, kappa: float,
+                        dagger: bool, Y: int, z_ext: bool, y_ext: bool,
+                        rows=None):
+    """Plain PyTorch twin of K7a on the given rows: A psi - kappa D psi at
+    the interior sites, with the hop of dslash_hop_halo_plain; A144
+    [Tl, 144, Zl, Y*X] or None.  Returns [R, 24, Zl, Y*X] f32."""
+    Tl = U.shape[0]
+    _, _, Yp, _ = halo_shapes(psi_ext, Y, z_ext, y_ext, Tl)
+    r = torch.as_tensor(halo_rows(rows, Tl), device=psi_ext.device)
+    pc = _interior(psi_ext[r + 1], z_ext, y_ext, Yp).float()
+    diag = pc if A144 is None else clover_apply_plain(A144[r], pc)
+    return diag - kappa * dslash_hop_halo_plain(psi_ext, U, Ut_shift, dagger,
+                                                Y, z_ext, y_ext, rows)
+
+
+def wilson_m_halo(psi_ext, U, Ut_shift, A144, kappa: float, dagger: bool,
+                  Y: int, z_ext: bool, y_ext: bool, rows=None, out=None):
+    """K7a: out[rows] = (A psi - kappa D psi)[rows] (M, or M^dag) of one
+    rank's block from its halo-extended input.
+
+    psi_ext [Tl+2, 24, Zp, Yp*X] f32 (Zp = Zl+2 if z_ext, Yp = Y+2 if
+    y_ext; Y is the block's interior y extent); U [Tl, 4, 18, Zp, Yp*X]
+    phased links with their z/y halos, f32 or bf16; Ut_shift [Tl, 18, Zp,
+    Yp*X] with Ut_shift[t] = U_t(global t - 1); A144 [Tl, 144, Zl, Y*X] of
+    U's dtype or None.  rows (t0, nrows, tstep) or None for all; out
+    [Tl, 24, Zl, Y*X] (rows outside the launch are left as they are).
+    CUDA tensors launch the kernel, CPU tensors run the twin."""
+    Tl = U.shape[0]
+    Zl, Zp, Yp, X = halo_shapes(psi_ext, Y, z_ext, y_ext, Tl)
+    r = halo_rows(rows, Tl)
+    oshape = (Tl, 24, Zl, Y * X)
+    if psi_ext.device.type == "cpu":
+        res = wilson_m_halo_plain(psi_ext, U, Ut_shift, A144, kappa, dagger,
+                                  Y, z_ext, y_ext, rows)
+        if out is None and rows is None:
+            return res
+        if out is None:
+            out = torch.zeros(oshape, dtype=torch.float32)
+        out[r] = res
+        return out
+    if psi_ext.device.type != "cuda":
+        raise ValueError(f"wilson_m_halo: no kernel for device "
+                         f"{psi_ext.device}")
+    dev = psi_ext.device
+    build.require(psi_ext, "psi_ext", (Tl + 2, 24, Zp, Yp * X),
+                  (torch.float32,), dev)
+    build.require(U, "U", (Tl, 4, 18, Zp, Yp * X),
+                  (torch.float32, torch.bfloat16), dev)
+    build.require(Ut_shift, "Ut_shift", (Tl, 18, Zp, Yp * X), (U.dtype,), dev)
+    if A144 is not None:
+        build.require(A144, "A144", (Tl, 144, Zl, Y * X), (U.dtype,), dev)
+    if out is None:
+        out = torch.empty(oshape, dtype=torch.float32, device=dev)
+    build.require(out, "out", oshape, (torch.float32,), dev)
+    if out.data_ptr() == psi_ext.data_ptr():
+        raise ValueError("wilson_m_halo: out must not alias psi_ext")
+    t0, n, step = (0, Tl, 1) if rows is None else rows
+    ext = 2 if y_ext else int(z_ext)
+    with torch.cuda.device(dev):
+        rc = _entry_halo()(psi_ext.data_ptr(), U.data_ptr(),
+                           Ut_shift.data_ptr(),
+                           None if A144 is None else A144.data_ptr(),
+                           out.data_ptr(), Zl, Y, X, int(t0), int(n),
+                           int(step), ext, float(kappa), int(dagger),
+                           int(A144 is not None),
+                           int(U.dtype == torch.bfloat16),
+                           build.stream_handle(dev))
+    build.check(rc, "wilson_m_halo")
+    wilson_m_halo.launches += 1
+    return out
+
+
+wilson_m_halo.launches = 0

@@ -15,7 +15,7 @@ the reorthogonalisation reads the live prefix V[:j+1] directly.
 """
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -70,8 +70,18 @@ def _rotate(V, Qr, Qi, ax):
     return Cr - _jrot(Ci, ax + 1)
 
 
-def _unitize(E):
+def norm(x: torch.Tensor, reduce: Optional[Callable] = None):
+    """The 2-norm of x; with `reduce` (the sum over ranks of a sharded
+    field's local parts) the global norm of the field whose local part x
+    is."""
+    n = torch.linalg.vector_norm(x)
+    return n if reduce is None else torch.sqrt(reduce(n * n))
+
+
+def _unitize(E, reduce=None):
     nrm = torch.linalg.vector_norm(E.reshape(E.shape[0], -1), dim=1)
+    if reduce is not None:
+        nrm = torch.sqrt(reduce(nrm * nrm))
     return E / nrm.reshape((-1,) + (1,) * (E.ndim - 1))
 
 
@@ -85,11 +95,19 @@ def lanczos_hermitian_realpair(
     max_restarts: int = 100,
     which: str = "SR",
     check_interval: int = 1,
+    reduce: Optional[Callable] = None,
 ) -> LanczosResult:
     """n_ev extremal eigenpairs of a Hermitian operator on real-pair fields.
 
     The Krylov basis V [n_kr+1, *field] takes v0's dtype and device; all
-    GEMMs run in full f32 (the package pins TF32 off)."""
+    GEMMs run in full f32 (the package pins TF32 off).
+
+    reduce: for a field sharded over ranks (v0 and matvec's fields are the
+    local blocks), the sum over ranks of a tensor of local partial sums;
+    every inner product and norm goes through it, so the projected matrix
+    and every convergence decision are the same on every rank.  None on
+    one device."""
+    red = reduce or (lambda x: x)
     which = normalize_which(which)
     shape = v0.shape
     ax = re_im_axis
@@ -102,7 +120,7 @@ def lanczos_hermitian_realpair(
     sign = torch.tensor([1.0, -1.0], dtype=rdtype, device=dev)
 
     V = torch.zeros((m + 1,) + tuple(shape), dtype=rdtype, device=dev)
-    V[0] = v0 / torch.linalg.vector_norm(v0)
+    V[0] = v0 / norm(v0, reduce)
     Tmat = torch.zeros((m, m, 2), dtype=rdtype, device=dev)
     beta = torch.zeros((), dtype=rdtype, device=dev)
 
@@ -114,13 +132,13 @@ def lanczos_hermitian_realpair(
         for j in range(j0, m):
             w = matvec(V[j])
             Vp = V[:j + 1]
-            d = _dots(Vp, w, ax)
+            d = red(_dots(Vp, w, ax))
             w = _axpy_sub(w, d, Vp, ax)
-            d2 = _dots(Vp, w, ax)
+            d2 = red(_dots(Vp, w, ax))
             w = _axpy_sub(w, d2, Vp, ax)
             col = d + d2                                  # [j+1, 2]
             Tmat[:j + 1, j] = col
-            beta = torch.linalg.vector_norm(w)
+            beta = norm(w, reduce)
             V[j + 1] = w / torch.clamp(beta, min=tiny)
             Tmat[j, :j + 1] = col * sign                  # conjugate row
             if j + 1 < m:
@@ -160,7 +178,7 @@ def lanczos_hermitian_realpair(
     Qs = q[:, sel_np]
     evecs = _unitize(_rotate(
         V[:m], torch.as_tensor(Qs.real, dtype=rdtype, device=dev),
-        torch.as_tensor(Qs.imag, dtype=rdtype, device=dev), ax))
+        torch.as_tensor(Qs.imag, dtype=rdtype, device=dev), ax), reduce)
     del V, Tmat
     return LanczosResult(
         evals=theta[sel_np],
@@ -172,19 +190,22 @@ def lanczos_hermitian_realpair(
 
 
 def rayleigh_ritz_refine(matvec: Callable, evecs: torch.Tensor,
-                         re_im_axis: int = 0):
+                         re_im_axis: int = 0,
+                         reduce: Optional[Callable] = None):
     """Second Rayleigh-Ritz pass on the ORIGINAL operator.
 
     Ritz vectors of a Chebyshev-filtered solve bottom out at the cluster
     width of the spectrum; projecting A itself on their span (a small
     generalized eigenproblem on the host) resolves the clusters.  The
     projections H = V^dag A V and G = V^dag V accumulate in float64 on the
-    device (native on the H100).
+    device (native on the H100); on a sharded field `reduce` sums their
+    local parts over the ranks in float64.
     Returns (evecs', evals', resids'), evecs' unit-norm, ascending evals.
     """
     import scipy.linalg
 
     ax = re_im_axis
+    red = reduce or (lambda x: x)
     n = evecs.shape[0]
     Vd = evecs.reshape(n, -1).double()
     H = torch.empty((n, n), dtype=torch.complex128)
@@ -194,8 +215,8 @@ def rayleigh_ritz_refine(matvec: Callable, evecs: torch.Tensor,
         w = matvec(v)
         hw = torch.stack([w, _jrot(w, ax)]).reshape(2, -1).double()
         gv = torch.stack([v, _jrot(v, ax)]).reshape(2, -1).double()
-        h = (Vd @ hw.T).cpu()
-        g = (Vd @ gv.T).cpu()
+        h = red(Vd @ hw.T).cpu()
+        g = red(Vd @ gv.T).cpu()
         H[:, j] = torch.complex(h[:, 0], h[:, 1])
         G[:, j] = torch.complex(g[:, 0], g[:, 1])
     del Vd
@@ -208,10 +229,10 @@ def rayleigh_ritz_refine(matvec: Callable, evecs: torch.Tensor,
     refined = _unitize(_rotate(evecs,
                                torch.as_tensor(q.real, dtype=dt, device=dev),
                                torch.as_tensor(q.imag, dtype=dt, device=dev),
-                               ax))
+                               ax), reduce)
     rs = []
     for j in range(n):
         v = refined[j]
         d = float(theta[j]) * v - matvec(v)
-        rs.append(float(torch.linalg.vector_norm(d.double())))
+        rs.append(float(norm(d.double(), reduce)))
     return refined, theta, np.asarray(rs)

@@ -26,7 +26,8 @@ import torch
 from .dirac_kernel import WilsonDiracKernel
 from .io.hdf5io import write_loops_hdf5_mom
 from .kernels.contract import covariant_displace, gamma_project, loop_contract
-from .lanczos import lanczos_hermitian_realpair, rayleigh_ritz_refine
+from .lanczos import (lanczos_hermitian_realpair, norm,
+                      rayleigh_ritz_refine)
 from .lattice import LatticeGeometry
 from .layout import kernel_gauge_np
 from .schur_kernel import SchurDiracKernelPacked
@@ -105,17 +106,40 @@ class ProductionResult:
     n_restarts: int
 
 
+def build_sharded_operator(U_np: np.ndarray, gauge: GaugeParam,
+                           inv: InvertParam, mesh, precision: str = "f32",
+                           even_odd: bool = False):
+    """The rank's block of the operator on a LatticeMesh: the single-device
+    operator's fields built on the host (build_kernel_dirac or
+    build_packed_schur with device="cpu"), sliced with mesh.local_block and
+    moved to the rank's device (parallel/shard_op.py)."""
+    from .parallel.shard_op import (ShardedSchurKernelPacked,
+                                    ShardedWilsonKernel, check_even_block)
+    if even_odd:
+        check_even_block(mesh)
+        host = build_packed_schur(U_np, gauge, inv, precision=precision,
+                                  device="cpu")
+        return ShardedSchurKernelPacked.from_packed_op(mesh, host)
+    host = build_kernel_dirac(U_np, gauge, inv, precision=precision,
+                              device="cpu")
+    return ShardedWilsonKernel.from_kernel_op(mesh, host)
+
+
 def compute_evecs_production(U_np: np.ndarray, gauge: GaugeParam,
                              inv: InvertParam, eig: EigParam,
                              seed: int = 1234, precision: str = "f32",
                              even_odd: bool = False,
-                             basis_precision: str = "f32", device="cuda"):
+                             basis_precision: str = "f32", mesh=None,
+                             device="cuda"):
     """Eigensolve of MdagM/MMdag on the kernel layout (computeEvecsMuGiq,
     lib/interface_mugiq.cpp:122-156): thick-restart Lanczos (+ optional
     Chebyshev and Rayleigh-Ritz refine), then the computeEvals analog
     (Rayleigh quotient, mass-normalization rescale, residuals, sigma).
     even_odd=True eigensolves the packed even-odd preconditioned operator
     (pc_solve): half-volume evecs [n, T, 24, Z, Y*X/2].
+    mesh (a parallel.mesh.LatticeMesh): the sharded solve on the rank's
+    block, on mesh.device; every inner product is reduced over the ranks
+    and the evecs returned are the rank's blocks.
     Returns (LanczosResult, evals, sigma, resids)."""
     if eig.block_size > 1:
         _not_ported("block Lanczos (block_size > 1)", "item 8")
@@ -123,15 +147,26 @@ def compute_evecs_production(U_np: np.ndarray, gauge: GaugeParam,
         _not_ported("the Arnoldi eigensolve of M / Mdag", "item 8")
     if basis_precision != "f32":
         _not_ported(f"basis_precision={basis_precision!r}", "item 3")
-    dev = resolve_device(device)
-    build = build_packed_schur if even_odd else build_kernel_dirac
+    dev = resolve_device(device) if mesh is None else mesh.device
+    reduce = None if mesh is None else mesh.all_reduce
     with phase_timer("operator-setup"):
-        op = build(U_np, gauge, inv, precision=precision, device=dev)
+        if mesh is None:
+            build = build_packed_schur if even_odd else build_kernel_dirac
+            op = build(U_np, gauge, inv, precision=precision, device=dev)
+        else:
+            op = build_sharded_operator(U_np, gauge, inv, mesh, precision,
+                                        even_odd)
 
-    # start vector drawn on the host exactly as the JAX package draws it
+    # start vector drawn on the host exactly as the JAX package draws it:
+    # the global field on every rank, which keeps its block, so that one
+    # seed gives one start vector on any mesh
+    X, Y, Z, T = gauge.dims
     rng = np.random.default_rng(seed)
-    v0 = torch.from_numpy(rng.standard_normal(op.field_shape).astype(
-        np.float32)).to(dev)
+    v0 = rng.standard_normal((T, 24, Z, Y * X // (2 if even_odd else 1))
+                             ).astype(np.float32)
+    if mesh is not None:
+        v0 = np.ascontiguousarray(mesh.local_block(v0))
+    v0 = torch.from_numpy(v0).to(dev)
 
     base = op.operator(eig.operator)
     it_fn = base
@@ -140,7 +175,7 @@ def compute_evecs_production(U_np: np.ndarray, gauge: GaugeParam,
         from .eig.lanczos import chebyshev_op, estimate_spectral_edge
         a_max = eig.a_max
         if a_max <= 0:
-            a_max = estimate_spectral_edge(base, v0)
+            a_max = estimate_spectral_edge(base, v0, reduce=reduce)
         it_fn = chebyshev_op(base, eig.poly_deg, eig.a_min, a_max)
         which = "LR"
         log(f"production eigensolve: Chebyshev deg={eig.poly_deg} "
@@ -150,9 +185,15 @@ def compute_evecs_production(U_np: np.ndarray, gauge: GaugeParam,
         res = lanczos_hermitian_realpair(
             it_fn, v0, n_ev=eig.n_ev, n_kr=eig.n_kr, re_im_axis=1,
             tol=eig.tol, max_restarts=eig.max_restarts, which=which,
-            check_interval=eig.check_interval)
+            check_interval=eig.check_interval, reduce=reduce)
     log(f"production eigensolve: converged={res.converged} "
         f"restarts={res.n_restarts}")
+    if mesh is not None:
+        from .parallel.distributed import gather_global
+        seen = gather_global((res.n_restarts, res.converged))
+        if len(set(seen)) != 1:
+            raise RuntimeError(f"the ranks took different convergence "
+                               f"branches (restarts, converged): {seen}")
 
     scale = (0.25 / inv.kappa ** 2
              if inv.mass_normalization == MassNormalization.MASS else 1.0)
@@ -160,21 +201,22 @@ def compute_evecs_production(U_np: np.ndarray, gauge: GaugeParam,
         # Ritz vectors of the filtered operator floor at the cluster width;
         # a Rayleigh-Ritz pass on the original operator resolves them
         with phase_timer("rayleigh-ritz-refine"):
-            refined, theta, rs_abs = rayleigh_ritz_refine(base, res.evecs,
-                                                          re_im_axis=1)
+            refined, theta, rs_abs = rayleigh_ritz_refine(
+                base, res.evecs, re_im_axis=1, reduce=reduce)
         res.evecs = refined
         evals = np.asarray(theta[:eig.n_ev]) * scale
         sigma = np.sqrt(np.maximum(evals, 0.0))
         return res, evals, sigma, list(np.asarray(rs_abs[:eig.n_ev]) * scale)
 
     # Rayleigh quotient <v,Mv>/<v,v> (computeEvals, eigsolve_mugiq.cpp:300-307)
+    red = reduce or (lambda x: x)
     lams, rs = [], []
     for i in range(eig.n_ev):
         v = res.evecs[i]
         w = base(v) * scale
-        lam = torch.sum(v * w) / torch.sum(v * v)
+        lam = red(torch.sum(v * w)) / red(torch.sum(v * v))
         lams.append(float(lam))
-        rs.append(float(torch.linalg.vector_norm(lam * v - w)))
+        rs.append(float(norm(lam * v - w, reduce)))
     evals = np.asarray(lams)
     sigma = np.sqrt(np.maximum(evals, 0.0))
     return res, evals, sigma, rs
@@ -197,12 +239,22 @@ def compute_loop_production(U_np: np.ndarray, gauge: GaugeParam,
     hierarchy that `mg` describes and prolongates its eigenvectors (the
     reference's computeCoarse path).  Its fine level is the kernel-layout
     formulation at every volume (mg_setup "auto" or "kernel"); the JAX
-    package's "host", "split" and "agg" setups are TPU workarounds."""
-    if mesh is not None:
-        _not_ported("the sharded production path (mesh)", "item 14")
+    package's "host", "split" and "agg" setups are TPU workarounds.
+
+    mesh (a parallel.mesh.LatticeMesh): the sharded loop, one rank's block
+    per process on mesh.device (compute_evecs_production's mesh, then
+    _measure_production_sharded); data_mom is the global result on every
+    rank and only the primary writes the HDF5 file."""
+    if mesh is not None and use_mg:
+        _not_ported("the MG-deflated loop under a mesh (the JAX package's "
+                    "sharded fine-level MG setup)", "item 15")
     if loop_param.write_pos_space_hdf5:
-        _not_ported("the position-space HDF5 writer", "item 4")
-    dev = resolve_device(device)
+        _not_ported("the position-space HDF5 writer (and its sharded form, "
+                    "write_loops_hdf5_pos_sharded)", "item 4")
+    if mesh is not None and keep_pos:
+        _not_ported("keep_pos under a mesh (the position-space loops of a "
+                    "sharded run)", "item 4")
+    dev = resolve_device(device) if mesh is None else mesh.device
     if use_mg:
         if mg_setup not in ("auto", "kernel"):
             raise NotImplementedError(
@@ -219,13 +271,17 @@ def compute_loop_production(U_np: np.ndarray, gauge: GaugeParam,
     cp = LoopComputeParam.build(geom, loop_param)
     res, evals, sigma, rs = compute_evecs_production(
         U_np, gauge, inv, eig, seed=seed, precision=precision,
-        basis_precision=basis_precision, device=dev)
+        basis_precision=basis_precision, mesh=mesh, device=dev)
 
     evecs = res.evecs
     res.evecs = None
     U_meas = U_loop_np if U_loop_np is not None else np.asarray(U_np)
-    data_mom, pos_np = _measure_production_kernel(
-        geom, loop_param, cp, evecs, sigma, U_meas, keep_pos)
+    if mesh is None:
+        data_mom, pos_np = _measure_production_kernel(
+            geom, loop_param, cp, evecs, sigma, U_meas, keep_pos)
+    else:
+        data_mom, pos_np = _measure_production_sharded(
+            geom, loop_param, cp, evecs, sigma, U_meas, mesh)
     return ProductionResult(
         evals=evals, sigma=sigma, resids=np.asarray(rs),
         data_mom=data_mom, data_pos=pos_np,
@@ -336,20 +392,97 @@ def _measure_production_kernel(geom, loop_param, cp, evecs_k, sigma,
     return _measure_tail(geom, loop_param, cp, data_pos, keep_pos)
 
 
-def _measure_tail(geom, loop_param, cp, data_pos, keep_pos):
-    """g5 map + momentum projection + HDF5 + keep_pos epilogue."""
+def _measure_production_sharded(geom, loop_param, cp, evecs_k, sigma,
+                                U_loop_np, mesh):
+    """The measurement of one rank's block [n, Tl, 24, Zl, Yl*X]: K2 on the
+    local batch (site-local); a displacement step along an axis that the
+    mesh partitions runs K3 on the batch extended by one halo slice along
+    that axis, with links extended alike, and keeps the interior (with one
+    halo slice, K3's periodic wrap never reaches an interior row); along an
+    axis the rank holds whole, K3 as on one device.  The tail projects the
+    rank's sites on its block of the phases and sums the ranks' t rows."""
+    from .parallel.halo import HaloExchange
+    from .parallel.shard_dslash import extend_along
+
+    dev = evecs_k.device
+    Yl = mesh.local["y"]
+    inv_sigma = torch.as_tensor(1.0 / np.asarray(sigma), dtype=torch.float32,
+                                device=dev)
+    U_loop_k = torch.from_numpy(np.ascontiguousarray(mesh.local_block(
+        kernel_gauge_np(U_loop_np, False)))).to(dev)
+    halo = HaloExchange(mesh)
+    # direction -> (mesh axis, its dim in a link field [Tl, 4, 18, Zl,
+    # Yl*X] and in the batch [n, Tl, 24, Zl, Yl*X], halo width)
+    split = {mu: v for mu, v in {1: ("y", 4, 4, mesh.X), 2: ("z", 3, 3, 1),
+                                 3: ("t", 0, 1, 1)}.items()
+             if mesh.shape[v[0]] > 1}
+    U_ext = {mu: extend_along(halo, U_loop_k, a, du, w)
+             for mu, (a, du, _, w) in split.items()}
+
+    def displace(vR, mu, sgn, out):
+        if mu not in split:
+            return covariant_displace(vR, U_loop_k, mu, sgn, Yl, out=out)
+        a, _, d, w = split[mu]
+        ext = extend_along(halo, vR, a, d, w)
+        res = covariant_displace(ext, U_ext[mu], mu, sgn,
+                                 Yl + 2 if a == "y" else Yl)
+        return out.copy_(res.narrow(d, w, vR.shape[d]))
+
+    def contract(vR):
+        return gamma_project(loop_contract(evecs_k, vR, inv_sigma), Yl)
+
+    slots = [None] * cp.n_loop
+    with phase_timer("loop-contraction"):
+        slots[0] = contract(evecs_k)
+        for ie, (dstr, start, stop) in enumerate(cp.disp_entries):
+            mu, sgn = parse_disp_str(dstr)
+            bufs = [torch.empty_like(evecs_k), torch.empty_like(evecs_k)]
+            vR = evecs_k
+            count = 0
+            for idisp in range(1, stop + 1):
+                vR = displace(vR, mu, sgn, bufs[idisp % 2])
+                if start <= idisp <= stop:
+                    slots[cp.n_loop_offset[ie] + count] = contract(vR)
+                    count += 1
+            del bufs, vR
+        data_pos = torch.stack(slots)          # [l, 2, 16, Tl, Zl, Yl, X]
+        del slots
+    del U_loop_k, U_ext
+    data_mom, _ = _measure_tail(geom, loop_param, cp, data_pos, False, mesh)
+    return data_mom, None
+
+
+def _measure_tail(geom, loop_param, cp, data_pos, keep_pos, mesh=None):
+    """g5 map + momentum projection + HDF5 + keep_pos epilogue.  mesh:
+    data_pos is a rank's block; its projection fills the rank's t rows of
+    the global result, summed over the ranks, and the primary writes."""
     data_mom = None
     if loop_param.do_mom_proj:
-        ph = phase_matrix_planar(geom, loop_param.momenta,
-                                 int(loop_param.ft_sign),
-                                 device=data_pos.device)
+        if mesh is None:
+            ph = phase_matrix_planar(geom, loop_param.momenta,
+                                     int(loop_param.ft_sign),
+                                     device=data_pos.device)
+        else:
+            ph = phase_matrix_planar(geom, loop_param.momenta,
+                                     int(loop_param.ft_sign), device="cpu")
+            z0, y0 = mesh.origin["z"], mesh.origin["y"]
+            ph = ph[:, z0:z0 + mesh.local["z"], y0:y0 + mesh.local["y"]
+                    ].to(data_pos.device).contiguous()
         with phase_timer("momentum-projection"):
             mapped = map_gamma_g5_planar(data_pos)
             lgtp = momentum_project_production(mapped, ph)
+            if mesh is not None:
+                l, _, g, Tl, P = lgtp.shape
+                full = torch.zeros((l, 2, g, geom.Lt, P), dtype=lgtp.dtype,
+                                   device=lgtp.device)
+                t0 = mesh.origin["t"]
+                full[:, :, :, t0:t0 + Tl] = lgtp
+                lgtp = mesh.all_reduce(full)
         arr = lgtp.cpu().numpy()               # [l, 2, 16, T, P]
         cplx = arr[:, 0] + 1j * arr[:, 1]
         data_mom = np.transpose(cplx, (3, 0, 1, 2))   # [P, l, 16, T]
-        if loop_param.write_mom_space_hdf5 or loop_param.fname_mom_h5:
+        if (loop_param.write_mom_space_hdf5 or loop_param.fname_mom_h5) \
+                and (mesh is None or mesh.is_primary):
             if not loop_param.fname_mom_h5:
                 raise ValueError("write_mom_space_hdf5 set but fname_mom_h5 "
                                  "empty")

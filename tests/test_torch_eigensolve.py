@@ -108,7 +108,8 @@ def test_evec_checkpoint_round_trip(pc_run, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--basis-precision", "bf16"], ["--mugiq-use-mg", "yes"],
-    ["--mesh", "2"], ["--prec", "double"], ["--eig-block-size", "2"]])
+    ["--mesh", "1", "1", "--mugiq-use-mg", "yes"], ["--prec", "double"],
+    ["--eig-block-size", "2"]])
 def test_options_outside_slice_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.run(ARGS + PC + flags)

@@ -7,7 +7,9 @@ device).  The file imports no JAX, so it runs on the GPU machine:
 
 Small odd extents exercise every periodic wrap of the index arithmetic;
 K6 needs even ones (the checkerboard), distinct so that no two axes can be
-confused.  Tolerances are f32 summation order only: K1, K5 and K6 2e-5 of max
+confused.  K7a and K7b run on the block of a rank away from the origin of
+each mesh kind (t; t and z; t, z and y halos), with the interior and
+boundary row launches held to the single pass bit for bit.  Tolerances are f32 summation order only: K1, K5 and K6 2e-5 of max
 |out| (up to ~100 terms per output, half-spinor vs full-projector form,
 K6's twin at full volume), K2 2e-6, K3 1e-6.
 """
@@ -21,8 +23,12 @@ from mugiq_tpu_torch.kernels.parity import parity_hop, parity_hop_plain
 from mugiq_tpu_torch.kernels.contract import (
     covariant_displace, covariant_displace_plain, loop_contract,
     loop_contract_plain)
-from mugiq_tpu_torch.kernels.wilson import wilson_m, wilson_m_plain
+from mugiq_tpu_torch.kernels.parity import (parity_hop_halo,
+                                            parity_hop_halo_plain)
+from mugiq_tpu_torch.kernels.wilson import (wilson_m, wilson_m_halo,
+                                            wilson_m_halo_plain, wilson_m_plain)
 from mugiq_tpu_torch.params import parse_disp_str
+from mugiq_tpu_torch.parallel.mesh import LatticeMesh
 
 from torch_ref import cuda_device, rand
 
@@ -122,3 +128,84 @@ def test_hop_dir_matches_twin_on_card(prec, dagger, dstr):
     torch.cuda.synchronize()
     assert dslash_hop_dir.launches == n0 + 1
     assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+
+
+MESH_KINDS = [(2, 1), (2, 2), (2, 2, 2)]
+
+
+def _far_rank(mesh, dims):
+    m = LatticeMesh(mesh, dims)
+    return m.rank_of({a: n - 1 for a, n in m.shape.items()})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh", MESH_KINDS, ids=str)
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("clover", [False, True])
+@pytest.mark.parametrize("dagger", [False, True])
+def test_wilson_m_halo_matches_twin_on_card(mesh, prec, clover, dagger):
+    dev = cuda_device()
+    dims = (5, 6, 4, 8)                     # X, Y, Z, T
+    X, Y, Z, T = dims
+    dt = torch.bfloat16 if prec == "bf16" else torch.float32
+    psi = torch.from_numpy(rand((T, 24, Z, Y * X), 1)).to(dev)
+    U = torch.from_numpy(rand((T, 4, 18, Z, Y * X), 2, 0.5)).to(dev).to(dt)
+    A = torch.from_numpy(rand((T, 144, Z, Y * X), 3, 0.2)).to(dev).to(dt)
+    m = LatticeMesh(mesh, dims, rank=_far_rank(mesh, dims), device=dev)
+    ze, ye, Yl, Tl = m.z_ext, m.y_ext, m.local["y"], m.local["t"]
+    args = (m.ext_block(psi, t=True, z=ze, y=ye),
+            m.ext_block(U, t=False, z=ze, y=ye),
+            m.ext_block(torch.roll(U[:, 3], 1, 0), t=False, z=ze, y=ye),
+            m.local_block(A).contiguous() if clover else None, 0.13, dagger,
+            Yl, ze, ye)
+    ref = wilson_m_halo_plain(*args)
+    n0 = wilson_m_halo.launches
+    got = wilson_m_halo(*args)
+    split = torch.full_like(got, float("nan"))
+    wilson_m_halo(*args, rows=(1, Tl - 2, 1), out=split)
+    wilson_m_halo(*args, rows=(0, 2, Tl - 1), out=split)
+    torch.cuda.synchronize()
+    assert wilson_m_halo.launches == n0 + 3
+    assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+    assert torch.equal(split, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh", MESH_KINDS, ids=str)
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["hop", "post", "comb", "comb_clover"])
+@pytest.mark.parametrize("dagger", [False, True])
+def test_parity_hop_halo_matches_twin_on_card(mesh, prec, mode, dagger):
+    dev = cuda_device()
+    dims = (6, 4, 4, 8)                     # X, Y, Z, T; even blocks
+    X, Y, Z, T = dims
+    Xh = X // 2
+    dt = torch.bfloat16 if prec == "bf16" else torch.float32
+    psi = torch.from_numpy(rand((T, 24, Z, Y * Xh), 1)).to(dev)
+    Uo = torch.from_numpy(rand((T, 4, 18, Z, Y * Xh), 2, 0.5)).to(dev).to(dt)
+    Ui = torch.from_numpy(rand((T, 4, 18, Z, Y * Xh), 3, 0.5)).to(dev).to(dt)
+    A = torch.from_numpy(rand((T, 144, Z, Y * Xh), 4, 0.2)).to(dev).to(dt)
+    pe = torch.from_numpy(rand((T, 24, Z, Y * Xh), 5)).to(dev)
+    m = LatticeMesh(mesh, dims, rank=_far_rank(mesh, dims), device=dev)
+    ze, ye, Tl = m.z_ext, m.y_ext, m.local["t"]
+    blk = lambda a: m.local_block(a).contiguous()  # noqa: E731
+    kw = {"hop": {}, "post": dict(A_post=blk(A)),
+          "comb": dict(kappa2=0.0169, psi_out=blk(pe)),
+          "comb_clover": dict(kappa2=0.0169, psi_out=blk(pe),
+                              A_comb=blk(A))}[mode]
+    po = 1 if mode in ("hop", "post") else 0
+    args = (m.ext_block(psi, t=True, z=ze, y=ye),
+            m.ext_block(Uo, t=False, z=ze, y=ye),
+            m.ext_block(Ui, t=False, z=ze, y=ye),
+            m.ext_block(torch.roll(Ui[:, 3], 1, 0), t=False, z=ze, y=ye),
+            m.local["y"], po, dagger, ze, ye)
+    ref = parity_hop_halo_plain(*args, **kw)
+    n0 = parity_hop_halo.launches
+    got = parity_hop_halo(*args, **kw)
+    split = torch.full_like(got, float("nan"))
+    parity_hop_halo(*args, **kw, rows=(1, Tl - 2, 1), out=split)
+    parity_hop_halo(*args, **kw, rows=(0, 2, Tl - 1), out=split)
+    torch.cuda.synchronize()
+    assert parity_hop_halo.launches == n0 + 3
+    assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+    assert torch.equal(split, got)

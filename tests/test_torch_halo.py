@@ -1,0 +1,312 @@
+"""K7a and K7b (the halo-extended Wilson and parity hops of one rank's
+block, kernels/wilson.py wilson_m_halo, kernels/parity.py parity_hop_halo):
+their plain PyTorch twins on the CPU.
+
+* Slab ties, without JAX: a global (X, Y, Z, T) = (4, 4, 4, 8) field is
+  split into the blocks of every mesh kind ((2, 1) t only, (4, 1) with a
+  t extent of 2 per rank, i.e. boundary rows only, (2, 2) t and z,
+  (2, 2, 2) t, z and y, and (1, 1) one rank); each block's halos are
+  filled from the global field (LatticeMesh.ext_block, what the exchange
+  gives) and the K7 outputs, concatenated, equal K1's / K6's twin on the
+  global field to 1e-6 of max |out| (the same f32 arithmetic per site;
+  in practice exact).  Every variant: M / M^dag, Wilson / clover, f32 /
+  bf16 links; K7b's four modes, both output parities.  The interior and
+  boundary row launches give the single pass bit for bit.
+* Against the JAX package: wilson_m_pallas_ext, wilson_m_pallas_ext2,
+  _pallas_ext3, _m_interior_call, _m_boundary_call
+  (parallel/shard_dslash.py) and parity_hop_pallas_ext,
+  parity_hop_pallas_extzy (pallas/schur_kernel.py) in interpret mode, as
+  tests/test_shard_dslash.py runs them, on the same extended inputs
+  sliced from one seeded global field as a rank sees them: 2e-5 of max
+  |out| (f32 summation order; both upcast the same bf16 links).  The
+  3D form of each runs by default; the other functions and the full
+  variant sweep are marked slow: each case compiles an interpret-mode
+  kernel, ~20-30 s each on a CPU.
+"""
+
+import itertools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mugiq_tpu_torch.kernels.parity import parity_hop_halo, parity_hop_plain
+from mugiq_tpu_torch.kernels.wilson import wilson_m_halo, wilson_m_plain
+from mugiq_tpu_torch.parallel.mesh import LatticeMesh
+from mugiq_tpu_torch.schur_kernel import pack_parity, pack_parity_gauge
+
+from torch_ref import rand
+
+torch.set_num_threads(2)
+
+DIMS = (4, 4, 4, 8)                    # X, Y, Z, T
+X, Y, Z, T = DIMS
+XH = X // 2
+KAPPA = 0.12
+MESHES = [(2, 1), (4, 1), (2, 2), (2, 2, 2), (1, 1)]
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _fields(prec):
+    dt = DTYPES[prec]
+    U = torch.from_numpy(rand((T, 4, 18, Z, Y * X), 2, 0.5)).to(dt)
+    A = torch.from_numpy(rand((T, 144, Z, Y * X), 3, 0.2)).to(dt)
+    psi = torch.from_numpy(rand((T, 24, Z, Y * X), 1))
+    return psi, U, A
+
+
+def _ut_shift(U):
+    """Ut_shift[t] = U_t(t - 1) on the global lattice."""
+    return torch.roll(U[:, 3], 1, 0)
+
+
+def _rank_inputs(m, psi, U, A, clover):
+    """What K7a gets on rank m: the extended spinor and links, the shifted
+    t-links, the interior clover blocks."""
+    ze, ye = m.z_ext, m.y_ext
+    return (m.ext_block(psi, t=True, z=ze, y=ye),
+            m.ext_block(U, t=False, z=ze, y=ye),
+            m.ext_block(_ut_shift(U), t=False, z=ze, y=ye),
+            m.local_block(A).contiguous() if clover else None)
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=str)
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("clover", [False, True])
+@pytest.mark.parametrize("dagger", [False, True])
+def test_k7a_slab_tie(mesh, prec, clover, dagger):
+    psi, U, A = _fields(prec)
+    ref = wilson_m_plain(psi, U, A if clover else None, KAPPA, dagger, Y)
+    got = torch.zeros_like(ref)
+    for r in range(LatticeMesh(mesh, DIMS).world):
+        m = LatticeMesh(mesh, DIMS, rank=r)
+        args = _rank_inputs(m, psi, U, A, clover)
+        Yl, Tl = m.local["y"], m.local["t"]
+        full = wilson_m_halo(*args, KAPPA, dagger, Yl, m.z_ext, m.y_ext)
+        split = torch.full_like(full, float("nan"))
+        if Tl > 2:
+            wilson_m_halo(*args, KAPPA, dagger, Yl, m.z_ext, m.y_ext,
+                          rows=(1, Tl - 2, 1), out=split)
+        wilson_m_halo(*args, KAPPA, dagger, Yl, m.z_ext, m.y_ext,
+                      rows=(0, 2, Tl - 1) if Tl > 1 else (0, 1, 1),
+                      out=split)
+        assert torch.equal(split, full)
+        m.local_block(got)[...] = full
+    err = float((got - ref).abs().max()) / float(ref.abs().max())
+    assert err <= 1e-6
+
+
+def _packed_fields(prec, parity_out):
+    psi, U, A = _fields(prec)
+    pin = 1 - parity_out
+    Uo = pack_parity_gauge(U, Y, parity_out)
+    Ui = pack_parity_gauge(U, Y, pin)
+    return dict(psi_in=pack_parity(psi, Y, pin),
+                psi_out=torch.from_numpy(rand((T, 24, Z, Y * XH), 5)),
+                U_out=Uo, U_in=Ui, Ut_in=torch.roll(Ui[:, 3], 1, 0),
+                A=pack_parity(A, Y, parity_out))
+
+
+MODES = {"pass1": lambda f: {}, "pass1+A_post": lambda f: dict(A_post=f["A"]),
+         "pass2": lambda f: dict(kappa2=KAPPA ** 2, psi_out=f["psi_out"]),
+         "pass2+A_comb": lambda f: dict(kappa2=KAPPA ** 2,
+                                        psi_out=f["psi_out"], A_comb=f["A"])}
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=str)
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("dagger", [False, True])
+def test_k7b_slab_tie(mesh, prec, mode, dagger):
+    for parity_out in (0, 1):
+        f = _packed_fields(prec, parity_out)
+        kw = MODES[mode](f)
+        ref = parity_hop_plain(f["psi_in"], f["U_out"], f["U_in"], Y,
+                               parity_out, dagger, **kw)
+        got = torch.zeros_like(ref)
+        for r in range(LatticeMesh(mesh, DIMS).world):
+            m = LatticeMesh(mesh, DIMS, rank=r)
+            ze, ye = m.z_ext, m.y_ext
+            Tl = m.local["t"]
+            loc = {k: (m.local_block(v) if torch.is_tensor(v) else v)
+                   for k, v in kw.items()}
+            args = (m.ext_block(f["psi_in"], t=True, z=ze, y=ye),
+                    m.ext_block(f["U_out"], t=False, z=ze, y=ye),
+                    m.ext_block(f["U_in"], t=False, z=ze, y=ye),
+                    m.ext_block(f["Ut_in"], t=False, z=ze, y=ye),
+                    m.local["y"], parity_out, dagger, ze, ye)
+            full = parity_hop_halo(*args, **loc)
+            split = torch.full_like(full, float("nan"))
+            if Tl > 2:
+                parity_hop_halo(*args, **loc, rows=(1, Tl - 2, 1), out=split)
+            parity_hop_halo(*args, **loc, rows=(0, 2, Tl - 1), out=split)
+            assert torch.equal(split, full)
+            m.local_block(got)[...] = full
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        assert err <= 1e-6, (parity_out, err)
+
+
+def test_halo_wrappers_check_their_inputs():
+    psi, U, A = _fields("f32")
+    m = LatticeMesh((2, 2, 2), DIMS, rank=3)
+    pe, Ue, Ute, _ = _rank_inputs(m, psi, U, A, False)
+    with pytest.raises(ValueError, match="z-extended too"):
+        wilson_m_halo(pe, Ue, Ute, None, KAPPA, False, 2, False, True)
+    with pytest.raises(ValueError, match="rows"):
+        wilson_m_halo(pe, Ue, Ute, None, KAPPA, False, 2, True, True,
+                      rows=(3, 2, 1))
+    odd = LatticeMesh((2, 1), (4, 4, 4, 6))
+    pk = pack_parity(torch.from_numpy(rand((6, 24, 4, 16), 1)), 4, 1)
+    Uk = pack_parity_gauge(torch.from_numpy(rand((6, 4, 18, 4, 16), 2)), 4, 0)
+    with pytest.raises(ValueError, match="even block extents"):
+        parity_hop_halo(odd.ext_block(pk), odd.local_block(Uk),
+                        odd.local_block(Uk), odd.local_block(Uk[:, 3]), 4, 0,
+                        False, False, False)
+
+
+# ---------------------------------------------------------------------------
+# against the JAX package (interpret-mode Pallas)
+# ---------------------------------------------------------------------------
+
+def _np(t):
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _jx(t, prec):
+    a = jnp.asarray(_np(t))
+    return a.astype(jnp.bfloat16) if prec == "bf16" else a
+
+
+def _close(got, want, tol=2e-5):
+    want = np.asarray(want, np.float32)
+    err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    assert err <= tol, err
+
+
+def _k7a_vs_jax(form, prec, clover, dagger):
+    """form: ext (t mesh), ext2 (t x z), ext3 (t x z x y), interior and
+    boundary (t mesh and t x z mesh halves of the overlap split)."""
+    import mugiq_tpu.parallel.shard_dslash as sd
+
+    psi, U, A = _fields(prec)
+    mesh = {"ext": (2, 1), "ext2": (2, 2), "ext3": (2, 2, 2),
+            "interior": (2, 2), "boundary": (2, 1)}[form]
+    m = LatticeMesh(mesh, DIMS, rank=m_rank(mesh))
+    pe, Ue, Ute, Al = _rank_inputs(m, psi, U, A, clover)
+    Yl, Tl = m.local["y"], m.local["t"]
+    got = wilson_m_halo(pe, Ue, Ute, Al, KAPPA, dagger, Yl, m.z_ext,
+                        m.y_ext)
+    jA = None if Al is None else _jx(Al, prec)
+    kw = dict(kappa=KAPPA, dagger=dagger, has_clover=clover)
+    if form == "ext":
+        want = sd.wilson_m_pallas_ext(jnp.asarray(pe.numpy()), _jx(Ue, prec),
+                                      _jx(Ute, prec), jA, Y=Yl, **kw)
+    elif form == "ext2":
+        want = sd.wilson_m_pallas_ext2(jnp.asarray(pe.numpy()),
+                                       _jx(Ue, prec), _jx(Ute, prec), jA,
+                                       Y=Yl, **kw)
+    elif form == "ext3":
+        want = sd._pallas_ext3(jnp.asarray(pe.numpy()), _jx(Ue, prec),
+                               _jx(Ute, prec), jA, Y=Yl, **kw)
+    else:
+        # the split's inputs: the z-extended block without t halos, the
+        # unshifted t-links, and (boundary) the halos and the previous
+        # rank's last t-link row
+        z = m.z_ext
+        psi_loc = jnp.asarray(pe[1:-1].numpy())
+        ut_loc = _jx(m.ext_block(U[:, 3], t=False, z=z), prec)
+        if form == "interior":
+            want = sd._m_interior_call(psi_loc, _jx(Ue, prec), ut_loc, jA,
+                                       Yl, KAPPA, dagger, clover, z_ext=z)
+            got = got[1:Tl - 1]
+        else:
+            want = sd._m_boundary_call(
+                psi_loc, jnp.asarray(pe[:1].numpy()),
+                jnp.asarray(pe[-1:].numpy()), _jx(Ue, prec), ut_loc,
+                _jx(Ute[:1], prec), jA, Yl, KAPPA, dagger, clover, z_ext=z)
+            got = got[[0, Tl - 1]]
+    _close(got, want)
+
+
+def m_rank(mesh):
+    """A rank away from the origin on every partitioned axis, so that a
+    wrong neighbour or halo cannot hide behind the periodic wrap."""
+    shape = tuple(mesh) + (1,) * (3 - len(mesh))
+    return LatticeMesh(mesh, DIMS).rank_of(
+        {"t": shape[0] - 1, "z": shape[1] - 1, "y": shape[2] - 1})
+
+
+def _k7b_vs_jax(form, prec, mode, dagger, parity_out):
+    import mugiq_tpu.pallas.schur_kernel as jsk
+
+    f = _packed_fields(prec, parity_out)
+    kw = MODES[mode](f)
+    mesh = (2, 1) if form == "ext" else (2, 2, 2)
+    m = LatticeMesh(mesh, DIMS, rank=m_rank(mesh))
+    ze, ye = m.z_ext, m.y_ext
+    Yl = m.local["y"]
+    ext = dict(z=ze, y=ye)
+    pe = m.ext_block(f["psi_in"], t=True, **ext)
+    Uo = m.ext_block(f["U_out"], t=False, **ext)
+    Ui = m.ext_block(f["U_in"], t=False, **ext)
+    Ut = m.ext_block(f["Ut_in"], t=False, **ext)
+    loc = {k: (m.local_block(v).contiguous() if torch.is_tensor(v) else v)
+           for k, v in kw.items()}
+    got = parity_hop_halo(pe, Uo, Ui, Ut, Yl, parity_out, dagger, ze, ye,
+                          **loc)
+    off = torch.from_numpy(np.array(jsk.offset_mask(T, Z, Y, XH,
+                                                    parity_out)))
+    jkw = dict(dagger=dagger, kappa2=loc.get("kappa2"),
+               psi_out=(None if "psi_out" not in loc
+                        else jnp.asarray(loc["psi_out"].numpy())),
+               A_post=(None if "A_post" not in loc
+                       else _jx(loc["A_post"], prec)),
+               A_comb=(None if "A_comb" not in loc
+                       else _jx(loc["A_comb"], prec)))
+    args = (jnp.asarray(pe.numpy()), _jx(Uo, prec), _jx(Ui, prec),
+            _jx(Ut, prec), jnp.asarray(m.ext_block(off, t=False,
+                                                   **ext).numpy()))
+    if form == "ext":
+        want = jsk.parity_hop_pallas_ext(*args, Y=Yl, **jkw)
+    else:
+        want = jsk.parity_hop_pallas_extzy(*args, Y=Yl, z_ext=ze, y_ext=ye,
+                                           **jkw)
+    _close(got, want)
+
+
+# by default the most general form of each (t, z and y halos; clover,
+# M^dag, bf16 links); the other forms and variants are the slow sweep
+K7A_DEFAULT = [("ext3", "bf16", True, True)]
+K7B_DEFAULT = [("extzy", "bf16", "pass2+A_comb", True, 0)]
+
+
+@pytest.mark.parametrize("case", K7A_DEFAULT, ids=lambda c: "-".join(
+    map(str, c)))
+def test_k7a_matches_jax(case):
+    _k7a_vs_jax(*case)
+
+
+@pytest.mark.parametrize("case", K7B_DEFAULT, ids=lambda c: "-".join(
+    map(str, c)))
+def test_k7b_matches_jax(case):
+    _k7b_vs_jax(*case)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", [
+    c for c in itertools.product(["ext", "ext2", "ext3", "interior",
+                                  "boundary"], ["f32", "bf16"],
+                                 [False, True], [False, True])
+    if c not in K7A_DEFAULT], ids=lambda c: "-".join(map(str, c)))
+def test_k7a_matches_jax_sweep(case):
+    _k7a_vs_jax(*case)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", [
+    c for c in itertools.product(["ext", "extzy"], ["f32", "bf16"],
+                                 list(MODES), [False, True], [0, 1])
+    if c not in K7B_DEFAULT], ids=lambda c: "-".join(map(str, c)))
+def test_k7b_matches_jax_sweep(case):
+    _k7b_vs_jax(*case)

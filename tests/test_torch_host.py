@@ -39,7 +39,10 @@ _IMPORT_ALL = (
     "mugiq_tpu_torch.layout, mugiq_tpu_torch.schur_kernel, "
     "mugiq_tpu_torch.kernels.parity, mugiq_tpu_torch.kernels.hop_dir, "
     "mugiq_tpu_torch.mg, mugiq_tpu_torch.io.gauge_io, "
-    "mugiq_tpu_torch.io.lime_io, mugiq_tpu_torch.io.hdf5io, chip_smoke\n")
+    "mugiq_tpu_torch.io.lime_io, mugiq_tpu_torch.io.hdf5io, "
+    "mugiq_tpu_torch.parallel.mesh, mugiq_tpu_torch.parallel.distributed, "
+    "mugiq_tpu_torch.parallel.halo, mugiq_tpu_torch.parallel.shard_dslash, "
+    "mugiq_tpu_torch.parallel.shard_op, chip_smoke\n")
 
 
 def test_import_leaves_jax_out():
@@ -276,6 +279,32 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         covariant_displace(b, torch.empty((2, 4, 18, 2, 4), device=m), 0, 1,
                            2)
+    from mugiq_tpu_torch.kernels.parity import parity_hop_halo
+    from mugiq_tpu_torch.kernels.wilson import wilson_m_halo
+    pe = torch.empty((4, 24, 2, 4), device=m)
+    u = torch.empty((2, 4, 18, 2, 4), device=m)
+    ut = torch.empty((2, 18, 2, 4), device=m)
+    with pytest.raises(ValueError, match="no kernel"):
+        wilson_m_halo(pe, u, ut, None, 0.1, False, 2, False, False)
+    with pytest.raises(ValueError, match="no kernel"):
+        parity_hop_halo(pe, u, u, ut, 2, 0, False, False, False)
+
+
+def test_init_distributed_device_choice(monkeypatch):
+    """A rank's device: cuda -> cuda:{LOCAL_RANK % cards}; explicit index
+    and cpu stay; no launcher environment -> no group, the device as
+    given."""
+    from mugiq_tpu_torch.parallel import distributed as dd
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert dd.rank_device("cuda", 3) == torch.device("cuda", 1)
+    assert dd.rank_device("cuda:0", 3) == torch.device("cuda", 0)
+    assert dd.rank_device("cpu", 3) == torch.device("cpu")
+    for k in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    assert dd.init_distributed(device="cpu") == torch.device("cpu")
+    assert dd.default_backend("cpu") == "gloo"
+    assert dd.default_backend("cuda") == "nccl"
 
 
 def test_device_parameters_default_to_cuda():
@@ -311,5 +340,9 @@ def test_device_parameters_default_to_cuda():
                 defaults[qual] = p.default
     assert {"mugiq_tpu_torch.io.gauge_io.plaquette",
             "mugiq_tpu_torch.phase.phase_matrix_planar",
-            "mugiq_tpu_torch.mg.rc_mg.MGEnvRC.load"} <= set(defaults)
+            "mugiq_tpu_torch.mg.rc_mg.MGEnvRC.load",
+            "mugiq_tpu_torch.parallel.distributed.init_distributed",
+            "mugiq_tpu_torch.parallel.mesh.make_lattice_mesh",
+            "mugiq_tpu_torch.production.compute_evecs_production"} \
+        <= set(defaults)
     assert {k: v for k, v in defaults.items() if v != "cuda"} == {}

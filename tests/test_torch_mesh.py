@@ -1,0 +1,358 @@
+"""The sharded production path (--mesh) of the port on the CPU, over real
+ranks: ``python -m torch.distributed.run --standalone --nproc-per-node N``
+subprocesses with --device cpu (gloo; tests/torch_mesh_worker.py is each
+rank), at (X, Y, Z, T) = (4, 4, 4, 8):
+
+* the loop CLI over --mesh 2 1, 2 2 and 2 2 2 (2, 4 and 8 ranks); the pc
+  eigensolve CLI (--solve-type direct-pc) over 2 1 and 2 2 2; one clover
+  case (the pc eigensolve, csw 1.1, over 2 2).  The three launches (one
+  per mesh) run at once, beside the references.
+* Every rank's output against the JAX package's single-device numbers,
+  the fp64 validation path converged to 1e-9 on the same gauge (numpy
+  weak:0.5, seed 1; kappa 0.13): eigenvalues 1e-5 relative, data_mom 1e-4
+  of its max (the tolerances of tests/test_torch_production.py).  n_ev = 4
+  ends at a gap of each spectrum (full Wilson 0.05027 | 0.05101, pc Wilson
+  0.16415 | 0.16726, pc clover 0.16766 | 0.16923).
+* Against the port's own single-device run of the same flags: the same
+  restart count on every rank, eigenvalues 1e-6 relative and data_mom 1e-5
+  of max (the reductions sum in another order).
+* Each rank's sharded operator on a random field against the
+  single-device operator's block (1e-6 of max; the same f32 arithmetic
+  per site), and the interior/boundary split (overlap=True) against the
+  single pass (overlap=False), bit for bit.
+* In process: --mesh 1 1 on one rank without a process group equals the
+  single-device run exactly; the errors (NCCL with ranks sharing a card,
+  odd local extents with direct-pc, --mesh with MG, bad mesh shapes).
+Slow: the same runs against the JAX production path itself
+(compute_loop_production / compute_evecs_production, interpret-mode
+Pallas; minutes).
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mugiq_tpu_torch.cli import eigensolve as cli_eig
+from mugiq_tpu_torch.cli import loop as cli_loop
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+DIMS = (4, 4, 4, 8)
+MOMENTA = [(0, 0, 0), (1, 0, 0), (0, 1, 1)]
+DISP = ["+z:1,2", "-t:1", "+y:1"]
+BASE = ["--dims", *map(str, DIMS), "--gauge", "weak:0.5", "--gauge-seed",
+        "1", "--kappa", "0.13", "--eig-nev", "4", "--eig-nkr", "16",
+        "--eig-tol", "1e-6", "--eig-max-restarts", "100",
+        "--eig-use-poly-acc", "--eig-poly-deg", "8", "--production",
+        "--device", "cpu"]
+# Chebyshev windows above each spectrum's wanted part
+LOOP = BASE + ["--eig-amin", "0.09", "--loop-do-nonlocal", "yes",
+               "--displace-entry-string", ";".join(DISP)]
+PC = BASE + ["--eig-amin", "0.3", "--solve-type", "direct-pc"]
+CLOVER = ["--dslash-type", "clover", "--csw", "1.1"]
+# mesh -> jobs (name, mode); one torch.distributed.run per mesh
+LAUNCHES = {"2 1": [("loop", "loop"), ("pc", "eig")],
+            "2 2": [("loop", "loop"), ("pc-clover", "eig")],
+            "2 2 2": [("loop", "loop"), ("pc", "eig")]}
+RUNS = [(m, name) for m, jobs in LAUNCHES.items() for name, _ in jobs]
+
+
+def _argv(name, mom):
+    loop = LOOP + ["--momenta-filename", str(mom)]
+    return {"loop": loop, "pc": PC, "pc-clover": PC + CLOVER}[name]
+
+
+def _evec_file(out):
+    """Where the pc job of a launch writes its evecs (gathered to the
+    primary under the mesh)."""
+    return out / "evecs.h5"
+
+
+def _gauge():
+    from mugiq_tpu_torch.io.gauge_io import load_gauge_np
+    from mugiq_tpu_torch.lattice import LatticeGeometry
+    return load_gauge_np("weak:0.5", LatticeGeometry(DIMS), seed=1)
+
+
+def _jax_refs():
+    """The JAX fp64 validation numbers: (loop evals, data_mom), pc evals
+    Wilson and clover."""
+    from mugiq_tpu import params as jp
+    from mugiq_tpu.api import compute_evecs_mugiq, compute_loop
+
+    U = jnp.asarray(_gauge())
+    gp = jp.GaugeParam(dims=DIMS)
+    lp = jp.LoopParam(momenta=MOMENTA, do_nonlocal=True, disp_entries=DISP)
+    res, eig = compute_loop(U, gp, jp.InvertParam(kappa=0.13),
+                            jp.EigParam(n_ev=4, n_kr=16, tol=1e-9,
+                                        max_restarts=500), lp)
+    out = {"loop": (np.sort(eig.evals.real), np.asarray(res.data_mom))}
+    for name, clover in (("pc", False), ("pc-clover", True)):
+        ip = jp.InvertParam(kappa=0.13, csw=1.1 if clover else 0.0,
+                            dslash_type=(jp.DslashType.CLOVER_WILSON
+                                         if clover else jp.DslashType.WILSON))
+        r = compute_evecs_mugiq(U, gp, ip, jp.EigParam(n_ev=4, n_kr=24,
+                                                        tol=1e-9,
+                                                        max_restarts=500),
+                                even_odd=True)
+        out[name] = (np.sort(r.evals.real), None)
+    return out
+
+
+def _single(name, mom):
+    """The port's single-device run: (evals, data_mom, restarts, evecs)."""
+    argv = _argv(name, mom)
+    if name == "loop":
+        r = cli_loop.run(argv)
+        return r.evals, r.data_mom, r.n_restarts, None
+    res, evals, _, _ = cli_eig.run(argv)
+    return evals, None, res.n_restarts, res.evecs.numpy()
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Start the three launches, compute the references meanwhile, then
+    load every rank's results: {(mesh, name): [rank dicts]}, refs."""
+    d = tmp_path_factory.mktemp("mesh")
+    mom = d / "moms.txt"
+    mom.write_text("".join(f"{p[0]} {p[1]} {p[2]}\n" for p in MOMENTA))
+    env = dict(os.environ, MUGIQ_LOG_LEVEL="WARNING", OMP_NUM_THREADS="1")
+    procs = {}
+    for mesh, jobs in LAUNCHES.items():
+        out = d / mesh.replace(" ", "")
+        out.mkdir()
+        spec = out / "jobs.json"
+        spec.write_text(json.dumps([
+            {"name": n, "mode": mode,
+             "argv": _argv(n, mom) + ["--mesh", *mesh.split()]
+             + (["--eig-vec-outfile", str(_evec_file(out))] if n == "pc"
+                else [])}
+            for n, mode in jobs]))
+        n = int(np.prod([int(v) for v in mesh.split()]))
+        log = open(out / "log.txt", "w")
+        procs[mesh] = (subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(n),
+             str(REPO / "tests" / "torch_mesh_worker.py"), str(out),
+             str(spec)], cwd=REPO, env=env, stdout=log,
+            stderr=subprocess.STDOUT), out, n, log)
+    try:
+        refs = {"jax": _jax_refs(),
+                "port": {n: _single(n, mom) for n in ("loop", "pc",
+                                                      "pc-clover")}}
+    finally:
+        for p, _, _, log in procs.values():
+            try:
+                p.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                p.terminate()           # the launcher stops its ranks
+                p.wait(timeout=60)
+            log.close()
+    got = {}
+    for mesh, (p, out, n, _) in procs.items():
+        assert p.returncode == 0, (out / "log.txt").read_text()[-4000:]
+        for name, _ in LAUNCHES[mesh]:
+            got[(mesh, name)] = [dict(np.load(out / f"{name}.rank{r}.npz"))
+                                 for r in range(n)]
+            if name == "pc":
+                got[(mesh, name)][0]["file"] = _evec_file(out)
+    return got, refs
+
+
+@pytest.mark.parametrize("run", RUNS, ids=lambda r: f"{r[1]}-{r[0]}")
+def test_mesh_matches_jax_single_device(runs, run):
+    got, refs = runs
+    evals, data_mom = refs["jax"][run[1]]
+    for r, res in enumerate(got[run]):
+        assert bool(res["converged"]), r
+        np.testing.assert_allclose(res["evals"], evals, rtol=1e-5,
+                                   err_msg=f"rank {r}")
+        if data_mom is not None:
+            assert res["data_mom"].shape == data_mom.shape == (3, 5, 16, 8)
+            np.testing.assert_allclose(res["data_mom"], data_mom,
+                                       atol=1e-4 * np.abs(data_mom).max(),
+                                       err_msg=f"rank {r}")
+
+
+@pytest.mark.parametrize("run", RUNS, ids=lambda r: f"{r[1]}-{r[0]}")
+def test_mesh_matches_port_single_device(runs, run):
+    """The same restart count on every rank as on one device: every rank
+    takes the single device's convergence branch."""
+    got, refs = runs
+    evals, data_mom, restarts, _ = refs["port"][run[1]]
+    for r, res in enumerate(got[run]):
+        assert int(res["n_restarts"]) == restarts, r
+        np.testing.assert_allclose(res["evals"], evals, rtol=1e-6)
+        if data_mom is not None:
+            np.testing.assert_allclose(res["data_mom"], data_mom,
+                                       atol=1e-5 * np.abs(data_mom).max())
+
+
+@pytest.mark.parametrize("run", RUNS, ids=lambda r: f"{r[1]}-{r[0]}")
+def test_mesh_operator_and_overlap(runs, run):
+    got, _ = runs
+    for res in got[run]:
+        assert float(res["op_err"]) <= 1e-6
+        assert bool(res["overlap_same"])
+
+
+@pytest.mark.parametrize("run", [r for r in RUNS if r[1] != "loop"],
+                         ids=lambda r: f"{r[1]}-{r[0]}")
+def test_mesh_evecs_are_rank_blocks(runs, run):
+    got, _ = runs
+    for res in got[run]:
+        X, Yl, Zl, Tl = res["local_dims"]
+        assert tuple(res["evec_shape"]) == (4, Tl, 24, Zl, Yl * X // 2)
+
+
+@pytest.mark.parametrize("mesh", [m for m, jobs in LAUNCHES.items()
+                                  if ("pc", "eig") in jobs])
+def test_mesh_evec_outfile_is_the_global_field(runs, mesh):
+    """--eig-vec-outfile under a mesh: the primary writes the gathered
+    global evecs in the single-device file layout; they span the
+    single-device evecs' space (every singular value of the overlap
+    within 1e-5 of 1)."""
+    from mugiq_tpu_torch.io.gauge_io import load_evecs
+
+    got, refs = runs
+    evecs, evals, _, _, _ = load_evecs(str(got[(mesh, "pc")][0]["file"]))
+    ref_evals, _, _, ref = refs["port"]["pc"]
+    assert evecs.shape == ref.shape == (4, 8, 24, 4, 8)
+    np.testing.assert_allclose(np.real(evals), ref_evals, rtol=1e-6)
+
+    def cplx(v):
+        return (v[:, :, :12] + 1j * v[:, :, 12:]).reshape(len(v), -1)
+
+    s = np.linalg.svd(cplx(ref).conj() @ cplx(evecs).T, compute_uv=False)
+    np.testing.assert_allclose(s, 1.0, atol=1e-5)
+
+
+def test_one_rank_mesh_equals_single_device(tmp_path):
+    """--mesh 1 1 in one process without a group: every sharded code path
+    but the transfer (halos are local periodic copies)."""
+    mom = tmp_path / "moms.txt"
+    mom.write_text("".join(f"{p[0]} {p[1]} {p[2]}\n" for p in MOMENTA))
+    a = cli_loop.run(_argv("loop", mom))
+    b = cli_loop.run(_argv("loop", mom) + ["--mesh", "1", "1"])
+    assert a.n_restarts == b.n_restarts
+    np.testing.assert_allclose(b.evals, a.evals, rtol=1e-7)
+    np.testing.assert_allclose(b.data_mom, a.data_mom,
+                               atol=1e-6 * np.abs(a.data_mom).max())
+
+
+def test_nccl_with_shared_cards_raises(monkeypatch):
+    from mugiq_tpu_torch.parallel import distributed as dd
+
+    with pytest.raises(ValueError, match="several ranks on one card"):
+        dd.check_backend("nccl", "cuda", 2, 1)
+    dd.check_backend("gloo", "cuda", 8, 1)
+    dd.check_backend("nccl", "cuda", 2, 2)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        cli_loop.run(LOOP + ["--mesh", "1", "1", "--dist-backend", "nccl"])
+    # two ranks of torch.distributed.run on a one-card host: raises before
+    # any process group starts
+    for k, v in dict(RANK="0", WORLD_SIZE="2", LOCAL_RANK="0",
+                     LOCAL_WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT="1").items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="several ranks on one card"):
+        dd.init_distributed(backend="nccl", device="cuda")
+
+
+def test_pc_with_odd_local_extents_raises():
+    from mugiq_tpu_torch.params import EigParam, GaugeParam, InvertParam
+    from mugiq_tpu_torch.parallel.mesh import LatticeMesh
+    from mugiq_tpu_torch.production import compute_evecs_production
+
+    dims = (4, 4, 6, 4)                 # Z = 6 over 2 ranks: Z_loc = 3
+    mesh = LatticeMesh((1, 2), dims, device="cpu")
+    from mugiq_tpu_torch.io.gauge_io import load_gauge_np
+    from mugiq_tpu_torch.lattice import LatticeGeometry
+    U = load_gauge_np("weak:0.5", LatticeGeometry(dims), seed=1)
+    with pytest.raises(ValueError, match="even local extents"):
+        compute_evecs_production(U, GaugeParam(dims=dims),
+                                 InvertParam(kappa=0.13),
+                                 EigParam(n_ev=2, n_kr=8), even_odd=True,
+                                 mesh=mesh)
+
+
+def test_mesh_with_mg_raises():
+    with pytest.raises(NotImplementedError, match="item 15"):
+        cli_loop.run(LOOP + ["--mesh", "1", "1", "--mugiq-use-mg", "yes"])
+
+
+@pytest.mark.parametrize("shape, match", [
+    ((2,), "2 or 3"), ((2, 2, 2, 1), "2 or 3"), ((3, 1), "does not divide"),
+    ((1, 0), "2 or 3")])
+def test_bad_mesh_shapes_raise(shape, match):
+    from mugiq_tpu_torch.parallel.mesh import LatticeMesh
+    with pytest.raises(ValueError, match=match):
+        LatticeMesh(shape, DIMS)
+
+
+def test_mesh_geometry_matches_jax_rank_order():
+    """Rank (it*nz + iz)*ny + iy, as the JAX device array reshaped to the
+    mesh shape; blocks tile the lattice; neighbours wrap."""
+    from jax.sharding import Mesh as JMesh
+
+    from mugiq_tpu_torch.parallel.mesh import LatticeMesh
+
+    shape = (2, 2, 2)
+    ids = np.arange(8).reshape(shape)
+    assert JMesh(np.asarray(ids, dtype=object), ("t", "z", "y")).devices \
+        .tolist() == ids.tolist()
+    field = torch.arange(8 * 24 * 4 * 16.).reshape(8, 24, 4, 16)
+    seen = torch.zeros_like(field)
+    for r in range(8):
+        m = LatticeMesh(shape, DIMS, rank=r)
+        it, iz, iy = np.argwhere(ids == r)[0]
+        assert (m.coords["t"], m.coords["z"], m.coords["y"]) == (it, iz, iy)
+        seen[m._block(field.shape, 0, r)] += 1
+        assert m.neighbours("t") == (ids[(it - 1) % 2, iz, iy],
+                                     ids[(it + 1) % 2, iz, iy])
+    assert torch.equal(seen, torch.ones_like(field))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", ["loop", "pc"])
+def test_mesh_matches_jax_production(runs, name):
+    """JAX compute_loop_production / compute_evecs_production (f32,
+    interpret-mode Pallas) on the same gauge and recipe: evals 1e-5,
+    data_mom 1e-4 of max, for every rank of every mesh."""
+    from mugiq_tpu import params as jp
+    from mugiq_tpu.production import (compute_evecs_production,
+                                      compute_loop_production)
+
+    gp = jp.GaugeParam(dims=DIMS)
+    ip = jp.InvertParam(kappa=0.13)
+    if name == "loop":
+        ep = jp.EigParam(n_ev=4, n_kr=16, tol=1e-6, max_restarts=100,
+                         use_poly_acc=True, poly_deg=8, a_min=0.09)
+        lp = jp.LoopParam(momenta=MOMENTA, do_nonlocal=True,
+                          disp_entries=DISP)
+        ref = compute_loop_production(_gauge(), gp, ip, ep, lp)
+        evals, data_mom = ref.evals, ref.data_mom
+    else:
+        ep = jp.EigParam(n_ev=4, n_kr=16, tol=1e-6, max_restarts=100,
+                         use_poly_acc=True, poly_deg=8, a_min=0.3)
+        _, evals, _, _ = compute_evecs_production(_gauge(), gp, ip, ep,
+                                                  even_odd=True)
+        data_mom = None
+    got, _ = runs
+    for run in [r for r in RUNS if r[1] == name]:
+        for res in got[run]:
+            np.testing.assert_allclose(res["evals"], evals, rtol=1e-5)
+            if data_mom is not None:
+                np.testing.assert_allclose(
+                    res["data_mom"], data_mom,
+                    atol=1e-4 * np.abs(data_mom).max())

@@ -1,0 +1,92 @@
+"""One rank of sharded runs of the port, for tests/test_torch_mesh.py:
+
+    python -m torch.distributed.run --standalone --nproc-per-node N \\
+        tests/torch_mesh_worker.py OUTDIR JOBS.json
+
+JOBS.json lists {"name", "mode" ("loop" or "eig"), "argv"} jobs whose CLI
+flags share one --mesh.  For each job the rank checks its sharded operator
+on a random field against the single-device operator's block of the same
+field (M, M^dag, M^dag M: the full operator for "loop", the packed one for
+"eig --solve-type direct-pc") and the interior/boundary split against the
+single pass, bit for bit; then runs the loop or eigensolve CLI's run()
+and writes its results to OUTDIR/<name>.rank<r>.npz.
+"""
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from mugiq_tpu_torch.cli import eigensolve as cli_eig  # noqa: E402
+from mugiq_tpu_torch.cli import loop as cli_loop  # noqa: E402
+from mugiq_tpu_torch.cli.common import build_mesh, build_params  # noqa: E402
+from mugiq_tpu_torch.io.gauge_io import load_gauge_np  # noqa: E402
+from mugiq_tpu_torch.lattice import LatticeGeometry  # noqa: E402
+from mugiq_tpu_torch.parallel.distributed import (  # noqa: E402
+    shutdown_distributed)
+from mugiq_tpu_torch.parallel.shard_op import (  # noqa: E402
+    ShardedSchurKernelPacked, ShardedWilsonKernel)
+from mugiq_tpu_torch.production import (build_kernel_dirac,  # noqa: E402
+                                        build_packed_schur)
+
+
+def op_check(cli, argv):
+    """(max rel err of the sharded operator against the single-device
+    block, overlap split bit-identical to the single pass, mesh)."""
+    args = cli.parse_args(argv)
+    gp, ip, _ = build_params(args)
+    mesh, _ = build_mesh(args, gp.dims)
+    U = load_gauge_np(args.gauge, LatticeGeometry(gp.dims),
+                      seed=args.gauge_seed)
+    pc = getattr(args, "solve_type", "direct") == "direct-pc"
+    if pc:
+        single = build_packed_schur(U, gp, ip, precision=args.link_precision,
+                                    device="cpu")
+        ops = [ShardedSchurKernelPacked.from_packed_op(mesh, single,
+                                                       overlap=o)
+               for o in (True, False)]
+    else:
+        single = build_kernel_dirac(U, gp, ip, precision=args.link_precision,
+                                    device="cpu")
+        ops = [ShardedWilsonKernel.from_kernel_op(mesh, single, overlap=o)
+               for o in (True, False)]
+    psi = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        single.field_shape).astype(np.float32))
+    loc = ops[0].place(psi)
+    err, same = 0.0, True
+    for name in ("M", "Mdag", "MdagM"):
+        want = mesh.local_block(getattr(single, name)(psi))
+        got = [getattr(op, name)(loc) for op in ops]
+        err = max(err, float((got[0] - want).abs().max()
+                             / want.abs().max()))
+        same = same and torch.equal(got[0], got[1])
+    return err, same, mesh
+
+
+def main():
+    out = Path(sys.argv[1])
+    for job in json.loads(Path(sys.argv[2]).read_text()):
+        cli = cli_loop if job["mode"] == "loop" else cli_eig
+        err, same, mesh = op_check(cli, job["argv"])
+        if job["mode"] == "loop":
+            res = cli.run(job["argv"])
+            evals, sigma, resids = res.evals, res.sigma, res.resids
+            data_mom, shape = res.data_mom, ()
+        else:
+            res, evals, sigma, resids = cli.run(job["argv"])
+            data_mom, shape = np.zeros(0), tuple(res.evecs.shape)
+        np.savez(out / f"{job['name']}.rank{mesh.rank}.npz",
+                 evals=np.asarray(evals), sigma=np.asarray(sigma),
+                 resids=np.asarray(resids), data_mom=data_mom,
+                 n_restarts=res.n_restarts, converged=res.converged,
+                 op_err=err, overlap_same=same, evec_shape=np.asarray(shape),
+                 local_dims=np.asarray(mesh.local_dims))
+    shutdown_distributed()
+
+
+if __name__ == "__main__":
+    main()
