@@ -11,7 +11,8 @@ Phases (each prints its own lines and raises on failure):
   kernels   K1-K3 against their plain PyTorch twins on the card at the
             flagship shapes (32^3x64): max error against a stated
             tolerance, kernel / twin times from CUDA events (median after
-            warm-up), and each kernel's least-time bound;
+            warm-up), each kernel's least-time bound, and for K2 the one
+            torch.einsum that computes its function;
   parity    K6 against its twin at 32^3x64 in every variant (pass 1 with
             and without A_post, pass 2 with and without A_comb, M and M^dag,
             f32 and bf16 links), with times and bounds;
@@ -34,23 +35,39 @@ Phases (each prints its own lines and raises on failure):
   mg-flagship  the MG-deflated 32^3x64 loop through the CLI (the settings
             of scripts/time_mg32.py plus one displacement), held to the
             coarse eigenvalues the JAX package recorded;
-  halo      K7a and K7b (the halo-extended Wilson and parity hops of one
-            rank's block) against their twins at the 32^3x64 shapes of
-            rank 0 of a --mesh 2 1 and a --mesh 2 2 2 grid, every variant,
-            with times, bounds and the interior / boundary launch times;
-            every rank's block concatenated tied to K1 and K6 on the
-            global field;
+  hop       K4 (the bare hop D psi) against its twin at 32^3x64 in all 16
+            variants (spinor, links and output f32 or bf16, D and D^dag);
+            K4 tied to the eight K5 hops and to K1; the masked even-even
+            preconditioned operator (dirac_kernel.SchurDiracKernel, two K4
+            hops per application) tied to K6's packed M_pc and timed
+            beside it, as a main path of K4; the headline hop, a chain of
+            K4 applications timed as bench.py times the TPU kernel
+            (16^3x32 f32, 32^3x64 f32 and all-bf16);
+  halo      K7a, K4-halo and K7b (the halo-extended Wilson operator, bare
+            hop and parity hop of one rank's block) against their twins at
+            the 32^3x64 shapes of rank 0 of a --mesh 2 1 and a --mesh 2 2 2
+            grid, every variant, with times, bounds and the interior /
+            boundary launch times; every rank's block concatenated tied to
+            K1, K4 and K6 on the global field;
   mesh-slice  the 8^3x16 loop over --mesh 2 2 2 (8 ranks on the card,
             gloo) and the pc eigensolve over --mesh 2 1, held to the same
-            runs on one device;
+            runs on one device; the sharded bare hop (ShardedWilsonKernel
+            _hop / _hop_dag, K4-halo) over 2 1 and 2 2 2, each rank held
+            to K4's twin and to K4 on the global field;
   mesh-flagship  the 32^3x64 loop flagship over --mesh 1 1 (one rank,
             NCCL) and --mesh 2 1 (two ranks: gloo with host-staged halos
             on a one-card machine, NCCL too where there are two cards),
-            held to the single-device flagship.
+            held to the single-device flagship; before the 2 1 loop the
+            sharded bare hop of the flagship gauge, as in mesh-slice.
 The ranks of a sharded run are processes of ``python -m
 torch.distributed.run`` running this script with --mesh-worker.
 Each flagship is a main path: every launch counter is set to 0 just
-before it and read just after (in every rank for the sharded ones).  The
+before it and read just after (in every rank for the sharded ones).  K4
+and K4-halo have no CLI path (in the JAX package neither): their main
+paths are the masked operator's M^dag M applications in `hop` and the
+sharded bare hop of the 32^3x64 `--mesh 2 1` launch in
+`mesh-flagship` (in `mesh-slice` when that phase runs without it),
+counted the same way.  The
 last two lines are
 {"kernels": [...]} and {"ok": true, "device": {...}}.  Without CUDA, or
 outside a checkout of the repository, it exits nonzero and prints no
@@ -119,7 +136,14 @@ MG_MAX_RESIDUAL = 1e-5
 TOL = {"wilson_m": 2e-5, "loop_contract": 2e-5, "covariant_displace": 1e-5,
        "parity_hop": 2e-5, "dslash_hop_dir": 2e-5, "identity": 1e-5,
        "wilson_m_halo": 2e-5, "parity_hop_halo": 2e-5,
-       # K7 blocks vs K1 / K6 on the global field: the same per-site code
+       "dslash_hop": 2e-5, "dslash_hop_halo": 2e-5,
+       # a bf16 output: one bf16 ulp (2^-8 relative) of the largest output
+       # either way of a rounding boundary
+       "dslash_hop_bf16": 2.0 ** -7,
+       # K4 vs the eight K5 hops: the same hop code, summed in another order
+       "hop_sum": 1e-6,
+       # K7 / K4-halo blocks vs K1 / K4 / K6 on the global field: the same
+       # per-site code
        "slab": 1e-6}
 
 TPU_KERNEL = {
@@ -131,6 +155,9 @@ TPU_KERNEL = {
     "wilson_m_halo": "mugiq_tpu/parallel/shard_dslash.py:112 (and :151, "
                      ":199, :314, :357)",
     "parity_hop_halo": "mugiq_tpu/pallas/schur_kernel.py:423 (and :486)",
+    "dslash_hop": "mugiq_tpu/pallas/dslash_kernel.py:436 (and :726)",
+    "dslash_hop_halo": "mugiq_tpu/parallel/shard_dslash.py:38 (and :74, "
+                       ":199, :314, :357 with kappa=None)",
 }
 SOURCE = {
     "wilson_m": "mugiq_tpu_torch/kernels/csrc/wilson_m.cu",
@@ -140,6 +167,8 @@ SOURCE = {
     "dslash_hop_dir": "mugiq_tpu_torch/kernels/csrc/hop_dir.cu",
     "wilson_m_halo": "mugiq_tpu_torch/kernels/csrc/wilson_m_halo.cu",
     "parity_hop_halo": "mugiq_tpu_torch/kernels/csrc/parity_hop_halo.cuh",
+    "dslash_hop": "mugiq_tpu_torch/kernels/csrc/dslash_hop.cu",
+    "dslash_hop_halo": "mugiq_tpu_torch/kernels/csrc/wilson_m_halo.cuh",
 }
 
 # The 8^3x16 slices of the slice and pc-slice phases as CLI flags, for the
@@ -242,8 +271,8 @@ def nbytes(*ts):
 def compare(name, got, ref):
     import torch
     torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    scale = float(ref.abs().max())
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
     rel = err / scale
     if not (rel <= TOL[name]):
         raise AssertionError(f"{name}: kernel vs twin rel err {rel:.3e} > "
@@ -348,12 +377,23 @@ def phase_kernels(dev, stats):
     pms = cuda_ms(lambda: loop_contract_plain(L, R, w), 5, 1)
     # 16 spin pairs x 3 colours of complex multiply-adds per site and evec
     b = bound(nbytes(L, R, w, got), n * T * Z * Y * X * 16 * 3 * 8)
+    # the one PyTorch call that computes K2's function: the twin's einsum
+    # on complex64 operands made before the timed window
+    Lc = torch.complex(L[:, :, :12], L[:, :, 12:]).reshape(
+        n, T, 4, 3, Z * Y * X).conj().resolve_conj()
+    Rc = torch.complex(R[:, :, :12], R[:, :, 12:]).reshape(n, T, 4, 3,
+                                                           Z * Y * X)
+    wc = w.to(torch.complex64)
+    lms = cuda_ms(lambda: torch.einsum("n,ntbcv,ntacv->tbav", wc, Lc, Rc),
+                  20)
+    del Lc, Rc
     say(f"K2 loop_contract n={n}: rel err {rel:.2e} (abs {err:.2e}, tol "
         f"{TOL['loop_contract']:.0e})  kernel {ms:.3f} ms (bound "
         f"{b['bound_ms']:.3f} ms by {b['bound_by']}, "
-        f"{b['bound_ms'] / ms:.2f} of it)  twin {pms:.3f} ms")
+        f"{b['bound_ms'] / ms:.2f} of it)  twin {pms:.3f} ms  one "
+        f"torch.einsum (complex64) {lms:.3f} ms")
     stats["loop_contract"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
-                              "library_ms": None, **b}
+                              "library_ms": lms, **b}
     del ref, got, R
 
     worst = (0.0, 0.0)
@@ -742,6 +782,161 @@ def phase_hopdir(dev, stats):
             del acc, k1
 
 
+def phase_hop(dev, stats, counters, launches):
+    """K4 against its twin on the card at 32^3x64 in all 16 variants; K4
+    tied to K5 and K1; the masked preconditioned operator (two K4 hops per
+    application) tied to K6 and timed, as K4's main path; the headline hop
+    chains."""
+    import torch
+    from mugiq_tpu_torch.dirac_kernel import SchurDiracKernel
+    from mugiq_tpu_torch.kernels.hop_dir import dslash_hop_dir
+    from mugiq_tpu_torch.kernels.wilson import (FLOP_PER_SITE, dslash_hop,
+                                                dslash_hop_plain, wilson_m)
+    from mugiq_tpu_torch.schur_kernel import (SchurDiracKernelPacked,
+                                              pack_parity, unpack_parities)
+
+    T, Z, Y, X = KERNEL_SHAPE
+    vol = T * Z * Y * X
+    g = torch.Generator(device=dev).manual_seed(5)
+    psi = torch.randn((T, 24, Z, Y * X), generator=g, device=dev)
+    U = torch.randn((T, 4, 18, Z, Y * X), generator=g, device=dev) * 0.5
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    worst = (0.0, 0.0)
+    for pp, pdt in types.items():
+        ps = psi.to(pdt)
+        for lp, ldt in types.items():
+            Ul = U.to(ldt)
+            for op, odt in types.items():
+                out = torch.empty(psi.shape, dtype=odt, device=dev)
+                for dagger in (False, True):
+                    ref = dslash_hop_plain(ps, Ul, dagger, Y, odt)
+                    got = dslash_hop(ps, Ul, dagger, Y, out_dtype=odt)
+                    key = "dslash_hop_bf16" if op == "bf16" else "dslash_hop"
+                    err, rel = compare(key, got, ref)
+                    if op == "f32":
+                        worst = max(worst, (rel, err))
+                    del ref, got
+                    ms = cuda_ms(lambda: dslash_hop(ps, Ul, dagger, Y,
+                                                    out=out), 20)
+                    moved = nbytes(ps, Ul, out)
+                    b = bound(moved, FLOP_PER_SITE * vol)
+                    say(f"K4 dslash_hop psi {pp} links {lp} out {op} "
+                        f"dagger={int(dagger)}: rel err {rel:.2e} (abs "
+                        f"{err:.2e}, tol {TOL[key]:.1e})  kernel {ms:.3f} ms "
+                        f"({FLOP_PER_SITE * vol / ms / 1e6:.0f} GFLOP/s; "
+                        f"bound {b['bound_ms']:.3f} ms by {b['bound_by']}, "
+                        f"{b['bound_ms'] / ms:.2f} of it)")
+                    if (pp, lp, op, dagger) == ("f32", "f32", "f32", False):
+                        pms = cuda_ms(lambda: dslash_hop_plain(ps, Ul, dagger,
+                                                               Y), 5, 1)
+                        say(f"K4 f32 D: twin {pms:.3f} ms")
+                        stats["dslash_hop"] = {"ms": ms, "plain_ms": pms,
+                                               "library_ms": None, **b}
+                del out
+            del Ul
+        del ps
+        torch.cuda.empty_cache()
+    stats["dslash_hop"]["max_abs_err"] = worst[1]
+
+    # K4 = the eight K5 hops; psi - kappa K4(psi) = K1(psi) (Wilson)
+    kappa = 0.12
+    out = torch.empty_like(psi)
+    for lp, ldt in types.items():
+        Ul = U.to(ldt)
+        for dagger in (False, True):
+            k4 = dslash_hop(psi, Ul, dagger, Y)
+            acc = torch.zeros_like(psi)
+            for mu in range(4):
+                for sgn in (1, -1):
+                    acc += dslash_hop_dir(psi, Ul, mu, sgn, dagger, Y,
+                                          out=out)
+            _, rel = compare("hop_sum", k4, acc)
+            k1 = wilson_m(psi, Ul, None, kappa, dagger, Y)
+            _, rel1 = compare("identity", psi - kappa * k4, k1)
+            say(f"identity K4 links {lp} dagger={int(dagger)}: vs the sum "
+                f"of the eight K5 hops rel {rel:.2e} (tol "
+                f"{TOL['hop_sum']:.0e}); psi - kappa K4 vs K1 rel {rel1:.2e} "
+                f"(tol {TOL['identity']:.0e})")
+            del k4, acc, k1
+    del out
+
+    # the masked operator (JAX dirac_kernel.SchurDiracKernel) against K6's
+    # packed M_pc on an even field, and its time beside K6's
+    masked = SchurDiracKernel(U, kappa, Y)
+    packed = SchurDiracKernelPacked(U, kappa, Y)
+    pe = torch.randn(packed.field_shape, generator=g, device=dev)
+    zero = torch.zeros_like(pe)
+    x = unpack_parities(pe, zero, Y)
+    for dagger in (False, True):
+        name = "Mdag" if dagger else "M"
+        got = getattr(masked, name)(x)
+        ref = unpack_parities(getattr(packed, name)(pe), zero, Y)
+        _, rel = compare("identity", got, ref)
+        odd = float(pack_parity(got, Y, 1).abs().max())
+        say(f"masked M_pc ({name}) vs unpack(K6 packed M_pc): rel {rel:.2e} "
+            f"(tol {TOL['identity']:.0e}), odd half max |.| {odd:.1e}")
+        if odd != 0.0:
+            raise AssertionError("the masked M_pc leaves the even sites")
+        del got, ref
+    mms = cuda_ms(lambda: masked.M(x), 20)
+    pms = cuda_ms(lambda: packed.M(pe), 20)
+    say(f"masked M_pc (2 K4 + 2 masks, full volume) {mms:.3f} ms; packed "
+        f"M_pc (2 K6 passes, half volume) {pms:.3f} ms; ratio "
+        f"{mms / pms:.2f}")
+    # K4's main path: applications of the masked MdagM, every launch
+    # counter zeroed just before and read just after
+    n_app = 50
+    v = x.clone()
+    for k in counters:
+        k.launches = 0
+    for _ in range(n_app):
+        v = masked.MdagM(v)
+        v = v / v.norm()
+    torch.cuda.synchronize()
+    got = {k.__name__: k.launches for k in counters}
+    say(f"masked MdagM x {n_app}: launches {json.dumps(got)}")
+    if got["dslash_hop"] != 4 * n_app or got["wilson_m"] or \
+            got["parity_hop"]:
+        raise AssertionError("the masked operator did not run on K4 alone")
+    if not bool(torch.isfinite(v).all()):
+        raise AssertionError("the masked MdagM chain is not finite")
+    launches["dslash_hop"] = got["dslash_hop"]
+    del masked, packed, pe, zero, x, v
+    torch.cuda.empty_cache()
+
+    # the headline hop: a chain of K4 applications, each output the next
+    # input (bench.py's measurement of dslash_hop_pallas), median of CUDA
+    # event timings of the whole chain over the chain length
+    card = card_line()
+    for dims, prec, n in (((32, 16, 16, 16), "f32", 400),
+                          (KERNEL_SHAPE, "f32", 100),
+                          (KERNEL_SHAPE, "bf16", 100)):
+        t, z, y, xx = dims
+        dt = types[prec]
+        sites = t * z * y * xx
+        a = torch.randn((t, 24, z, y * xx), generator=g, device=dev).to(dt)
+        Ul = (torch.randn((t, 4, 18, z, y * xx), generator=g, device=dev)
+              * 0.3).to(dt)
+        b_ = torch.empty_like(a)
+
+        def chain():
+            p, q = a, b_
+            for _ in range(n):
+                dslash_hop(p, Ul, False, y, out=q)
+                p, q = q, p
+
+        ms = cuda_ms(chain, 5, 1) / n
+        bnd = bound(nbytes(a, Ul, b_), FLOP_PER_SITE * sites)
+        say(f"headline K4 hop {xx}^3x{t} {prec} (psi, links, out): "
+            f"{ms * 1e3:.1f} us per application over a chain of {n}, "
+            f"{FLOP_PER_SITE * sites / ms / 1e6:.0f} GFLOP/s at "
+            f"{FLOP_PER_SITE} flop/site, bound {bnd['bound_ms'] * 1e3:.1f} "
+            f"us by {bnd['bound_by']}, {bnd['bound_ms'] / ms:.2f} of it; "
+            f"card {card}")
+        del a, b_, Ul
+        torch.cuda.empty_cache()
+
+
 def phase_mg_slice(dev):
     """The MG-deflated loop at 8^3x16 through the kernels (card) vs the
     twins (CPU)."""
@@ -829,14 +1024,17 @@ def phase_mg_flagship(counters):
 
 
 def phase_halo(dev, stats):
-    """K7a and K7b against their twins on the card at the 32^3x64 shapes of
-    rank 0 of a 2 1 and a 2 2 2 grid, every variant; the interior and
-    boundary launches; every rank's block tied to K1 / K6."""
+    """K7a, K4-halo and K7b against their twins on the card at the 32^3x64
+    shapes of rank 0 of a 2 1 and a 2 2 2 grid, every variant; the
+    interior and boundary launches; every rank's block tied to K1 / K4 /
+    K6."""
     import torch
     from mugiq_tpu_torch.kernels.parity import (parity_hop, parity_hop_halo,
                                                 parity_hop_halo_plain)
-    from mugiq_tpu_torch.kernels.wilson import (FLOP_PER_SITE, wilson_m,
-                                                wilson_m_halo,
+    from mugiq_tpu_torch.kernels.wilson import (FLOP_PER_SITE, dslash_hop,
+                                                dslash_hop_halo,
+                                                dslash_hop_halo_plain,
+                                                wilson_m, wilson_m_halo,
                                                 wilson_m_halo_plain)
     from mugiq_tpu_torch.parallel.mesh import LatticeMesh
     from mugiq_tpu_torch.schur_kernel import pack_parity, pack_parity_gauge
@@ -911,6 +1109,74 @@ def phase_halo(dev, stats):
             del pe, Ue, Ute, Al, out
             torch.cuda.empty_cache()
     stats["wilson_m_halo"]["max_abs_err"] = worst[1]
+
+    # K4-halo (the bare hop of the block): every link type and dagger at
+    # both rank shapes, the interior / boundary split bit for bit, every
+    # rank's block tied to K4 on the global field
+    worst = (0.0, 0.0)
+    for mesh in ((2, 1), (2, 2, 2)):
+        m = LatticeMesh(mesh, dims, rank=0, device=dev)
+        ze, ye, Yl, Tl = m.z_ext, m.y_ext, m.local["y"], m.local["t"]
+        sites = Tl * m.local["z"] * Yl * X
+        tag = " ".join(map(str, mesh))
+        for prec in ("f32", "bf16"):
+            pe, Ue, Ute, _ = k7a_inputs(m, prec)
+            for dagger in (False, True):
+                args = (pe, Ue, Ute, dagger, Yl, ze, ye)
+                ref = dslash_hop_halo_plain(*args)
+                got = dslash_hop_halo(*args)
+                err, rel = compare("dslash_hop_halo", got, ref)
+                worst = max(worst, (rel, err))
+                del ref
+                split = torch.full_like(got, float("nan"))
+                dslash_hop_halo(*args, rows=(1, Tl - 2, 1), out=split)
+                dslash_hop_halo(*args, rows=(0, 2, Tl - 1), out=split)
+                if not torch.equal(split, got):
+                    raise AssertionError("K4-halo: the interior / boundary "
+                                         "launches differ from the single "
+                                         "pass")
+                out = torch.empty_like(got)
+                ms = cuda_ms(lambda: dslash_hop_halo(*args, out=out), 20)
+                moved = nbytes(pe, Ue, Ute, got)
+                b = bound(moved, FLOP_PER_SITE * sites)
+                say(f"K4-halo dslash_hop_halo mesh {tag} rank 0 {prec} "
+                    f"dagger={int(dagger)}: rel err {rel:.2e} (abs "
+                    f"{err:.2e}, tol {TOL['dslash_hop_halo']:.0e}), split "
+                    f"bit-identical  kernel {ms:.3f} ms (bound "
+                    f"{b['bound_ms']:.3f} ms by {b['bound_by']}, "
+                    f"{b['bound_ms'] / ms:.2f} of it)")
+                if (mesh, prec, dagger) == ((2, 1), "f32", False):
+                    pms = cuda_ms(lambda: dslash_hop_halo_plain(*args), 3, 1)
+                    ims = cuda_ms(lambda: dslash_hop_halo(
+                        *args, rows=(1, Tl - 2, 1), out=out), 20)
+                    bms = cuda_ms(lambda: dslash_hop_halo(
+                        *args, rows=(0, 2, Tl - 1), out=out), 20)
+                    say(f"K4-halo mesh {tag} rank 0 f32 D: twin {pms:.3f} ms;"
+                        f" interior launch {ims:.3f} ms, boundary launch "
+                        f"{bms:.3f} ms, single pass {ms:.3f} ms")
+                    stats["dslash_hop_halo"] = {"ms": ms, "plain_ms": pms,
+                                                "library_ms": None, **b}
+                del got, out, split
+            del pe, Ue, Ute
+            torch.cuda.empty_cache()
+    stats["dslash_hop_halo"]["max_abs_err"] = worst[1]
+    for mesh in ((2, 1), (2, 2, 2)):
+        for dagger in (False, True):
+            ref = dslash_hop(psi, U, dagger, Y)
+            got = torch.empty_like(ref)
+            for r in range(LatticeMesh(mesh, dims).world):
+                m = LatticeMesh(mesh, dims, rank=r, device=dev)
+                ext = dict(z=m.z_ext, y=m.y_ext)
+                m.local_block(got)[...] = dslash_hop_halo(
+                    m.ext_block(psi, t=True, **ext),
+                    m.ext_block(U, t=False, **ext),
+                    m.ext_block(Ut, t=False, **ext), dagger, m.local["y"],
+                    m.z_ext, m.y_ext)
+            _, rel = compare("slab", got, ref)
+            say(f"slab tie K4-halo (mesh {' '.join(map(str, mesh))}, every "
+                f"rank) vs K4, dagger={int(dagger)}: rel {rel:.2e} (tol "
+                f"{TOL['slab']:.0e})")
+            del ref, got
 
     # every rank's K7a block concatenated equals K1 on the global field
     for mesh in ((2, 1), (2, 2, 2)):
@@ -1046,6 +1312,11 @@ def mesh_worker(out, spec):
 
     counters = kernel_counters()
     for job in json.loads(Path(spec).read_text()):
+        if job["mode"] == "hop":
+            res = sharded_hop_check(job["argv"], counters)  # starts the group
+            np.savez(Path(out) / f"{job['name']}.rank{dist.get_rank()}.npz",
+                     **res)
+            continue
         loop = job["mode"] == "loop"
         halo.reset_totals()
         got, wall, phases, launches = run_main_path(
@@ -1066,6 +1337,73 @@ def mesh_worker(out, spec):
                  halo=json.dumps(halo.TOTALS), backend=dist.get_backend(),
                  world=dist.get_world_size())
     shutdown_distributed()
+
+
+def sharded_hop_check(argv, counters):
+    """One rank of the sharded bare hop: ShardedWilsonKernel._hop and
+    _hop_dag (K4-halo over the halo exchange) on the rank's block of a
+    seeded field, with every launch counter zeroed just before and read
+    just after; then each held to K4's plain twin (errs) and to K4
+    (ties) on the global field."""
+    import torch
+    from mugiq_tpu_torch.cli import loop as cli_loop
+    from mugiq_tpu_torch.cli.common import build_mesh, build_params
+    from mugiq_tpu_torch.io.gauge_io import load_gauge_np
+    from mugiq_tpu_torch.kernels.wilson import dslash_hop, dslash_hop_plain
+    from mugiq_tpu_torch.lattice import LatticeGeometry
+    from mugiq_tpu_torch.parallel.shard_op import ShardedWilsonKernel
+    from mugiq_tpu_torch.production import build_kernel_dirac
+
+    args = cli_loop.parse_args(argv)
+    gp, ip, _ = build_params(args)
+    mesh, dev = build_mesh(args, gp.dims)
+    U = load_gauge_np(args.gauge, LatticeGeometry(gp.dims),
+                      seed=args.gauge_seed)
+    single = build_kernel_dirac(U, gp, ip, device=dev)
+    op = ShardedWilsonKernel.from_kernel_op(mesh, single)
+    g = torch.Generator(device=dev).manual_seed(6)
+    psi = torch.randn(single.field_shape, generator=g, device=dev)
+    loc = op.place(psi)
+    for k in counters:
+        k.launches = 0
+    got = [op._hop(loc), op._hop_dag(loc)]
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    errs, ties = [], []
+    for dagger, h in zip((False, True), got):
+        for acc, f in ((errs, dslash_hop_plain), (ties, dslash_hop)):
+            want = mesh.local_block(f(psi, single.U_k, dagger, single.Y))
+            acc.append(float((h - want).abs().max() / want.abs().max()))
+            del want
+    del got, single, op
+    torch.cuda.empty_cache()
+    return {"errs": errs, "ties": ties, "launches": json.dumps(launches),
+            "world": mesh.world}
+
+
+def check_sharded_hop(name, ranks):
+    """Every rank's sharded bare hop within TOL['dslash_hop_halo'] of K4's
+    plain twin and within TOL['slab'] of K4 on the global field, each
+    application one interior and one boundary K4-halo launch and no K4."""
+    for r, d in enumerate(ranks):
+        errs = [float(e) for e in d["errs"]]
+        ties = [float(e) for e in d["ties"]]
+        lk = d["launches"]
+        say(f"{name} rank {r}/{int(d['world'])}: D rel {errs[0]:.2e}, D^dag "
+            f"rel {errs[1]:.2e} vs K4's twin on the global field (tol "
+            f"{TOL['dslash_hop_halo']:.0e}); vs K4 {ties[0]:.2e}, "
+            f"{ties[1]:.2e} (tol {TOL['slab']:.0e}); launches K4-halo "
+            f"{lk['dslash_hop_halo']}, K4 {lk['dslash_hop']}")
+        if max(errs) > TOL["dslash_hop_halo"]:
+            raise AssertionError(f"{name} rank {r}: the sharded hop "
+                                 f"disagrees with K4's twin")
+        if max(ties) > TOL["slab"]:
+            raise AssertionError(f"{name} rank {r}: the sharded hop "
+                                 f"disagrees with K4")
+        if lk["dslash_hop_halo"] != 4 or lk["dslash_hop"] or \
+                lk["wilson_m_halo"]:
+            raise AssertionError(f"{name} rank {r}: launches {lk}")
+    return ranks[0]["launches"]["dslash_hop_halo"]
 
 
 def run_mesh(name, mesh, jobs, backend, timeout=900):
@@ -1109,7 +1447,8 @@ def run_mesh(name, mesh, jobs, backend, timeout=900):
                 with np.load(os.path.join(tmp, f"{j}.rank{r}.npz")) as z:
                     d = {k: z[k] for k in z.files}
                 for k in ("phases", "launches", "halo"):
-                    d[k] = json.loads(str(d[k]))
+                    if k in d:
+                        d[k] = json.loads(str(d[k]))
                 out[j].append(d)
         return out
     finally:
@@ -1154,7 +1493,9 @@ def check_ranks(name, ranks, ref, mom_tol, launched, not_launched):
 def phase_mesh_slice(counters):
     """The 8^3x16 loop over --mesh 2 2 2 and the pc eigensolve over --mesh
     2 1 (ranks sharing the card: gloo), held to the same runs on one
-    device; returns K7b's launches on rank 0 of the pc run."""
+    device, each launch preceded by the sharded bare hop of its ranks held
+    to K4; returns K7b's launches on rank 0 of the pc run and K4-halo's on
+    rank 0 of the 2 1 bare hop."""
     from mugiq_tpu_torch.cli import eigensolve as cli_eig
     from mugiq_tpu_torch.cli import loop as cli_loop
 
@@ -1172,15 +1513,20 @@ def phase_mesh_slice(counters):
             "mesh pc slice, one device", cli_eig.run, PC_SLICE_ARGS, counters)
         ref_pc = (ev, None, r.n_restarts)
         got = run_mesh("mesh slice loop --mesh 2 2 2", "2 2 2",
-                       [("loop", "loop", loop_args)], "gloo")["loop"]
-        check_ranks("mesh slice loop 2 2 2", got, ref_loop, 1e-3,
+                       [("hop", "hop", loop_args),
+                        ("loop", "loop", loop_args)], "gloo")
+        check_sharded_hop("mesh slice bare hop 2 2 2", got["hop"])
+        check_ranks("mesh slice loop 2 2 2", got["loop"], ref_loop, 1e-3,
                     ("wilson_m_halo", "loop_contract", "covariant_displace"),
                     ("wilson_m",))
         got = run_mesh("mesh slice pc --mesh 2 1", "2 1",
-                       [("pc", "eig", PC_SLICE_ARGS)], "gloo")["pc"]
-        check_ranks("mesh slice pc 2 1", got, ref_pc, 1e-3,
+                       [("hop", "hop", loop_args),
+                        ("pc", "eig", PC_SLICE_ARGS)], "gloo")
+        hop_launches = check_sharded_hop("mesh slice bare hop 2 1",
+                                         got["hop"])
+        check_ranks("mesh slice pc 2 1", got["pc"], ref_pc, 1e-3,
                     ("parity_hop_halo",), ("parity_hop", "wilson_m"))
-        return got[0]["launches"]["parity_hop_halo"]
+        return (got["pc"][0]["launches"]["parity_hop_halo"], hop_launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1188,8 +1534,10 @@ def phase_mesh_slice(counters):
 def phase_mesh_flagship(flagship):
     """The 32^3x64 loop flagship through the CLI over --mesh 1 1 (one rank,
     NCCL) and --mesh 2 1 (two ranks: gloo on a one-card machine; NCCL too
-    where there are two cards), held to the single-device flagship;
-    returns K7a's launches of the one-rank run."""
+    where there are two cards), held to the single-device flagship, each
+    2 1 launch preceded by the sharded bare hop of its ranks; returns
+    K7a's launches of the one-rank run and K4-halo's on rank 0 of the
+    2 1 gloo bare hop."""
     import numpy as np
     import torch
 
@@ -1204,7 +1552,7 @@ def phase_mesh_flagship(flagship):
             f"({torch.cuda.device_count()} card); two ranks share the card "
             f"over gloo")
     runs.append(("2 1", "gloo"))
-    launches = None
+    launches = hop_launches = None
     try:
         mom = os.path.join(tmp, "moms.txt")
         with open(mom, "w") as f:
@@ -1213,8 +1561,16 @@ def phase_mesh_flagship(flagship):
                                                       mom]
         for mesh, backend in runs:
             name = f"mesh flagship --mesh {mesh} ({backend})"
-            got = run_mesh(name, mesh, [("loop", "loop", argv)], backend,
-                           timeout=1200)["loop"]
+            jobs = [("loop", "loop", argv)]
+            if mesh == "2 1":
+                jobs.insert(0, ("hop", "hop", argv))
+            res = run_mesh(name, mesh, jobs, backend, timeout=1200)
+            if mesh == "2 1":
+                n = check_sharded_hop(f"mesh flagship bare hop {mesh} "
+                                      f"({backend})", res["hop"])
+                if backend == "gloo":
+                    hop_launches = n
+            got = res["loop"]
             check_ranks(name, got, ref, 1e-3,
                         ("wilson_m_halo", "loop_contract",
                          "covariant_displace"), ("wilson_m",))
@@ -1234,7 +1590,7 @@ def phase_mesh_flagship(flagship):
                 launches = got[0]["launches"]["wilson_m_halo"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches
+    return launches, hop_launches
 
 
 def kernel_counters():
@@ -1242,14 +1598,16 @@ def kernel_counters():
                                                   loop_contract)
     from mugiq_tpu_torch.kernels.hop_dir import dslash_hop_dir
     from mugiq_tpu_torch.kernels.parity import parity_hop, parity_hop_halo
-    from mugiq_tpu_torch.kernels.wilson import wilson_m, wilson_m_halo
+    from mugiq_tpu_torch.kernels.wilson import (dslash_hop, dslash_hop_halo,
+                                                wilson_m, wilson_m_halo)
     return [wilson_m, loop_contract, covariant_displace, parity_hop,
-            dslash_hop_dir, wilson_m_halo, parity_hop_halo]
+            dslash_hop_dir, wilson_m_halo, parity_hop_halo, dslash_hop,
+            dslash_hop_halo]
 
 
 PHASES = ("build", "kernels", "parity", "identity", "slice", "pc-slice",
           "flagship", "pc-flagship", "hopdir", "mg-slice", "mg-flagship",
-          "halo", "mesh-slice", "mesh-flagship")
+          "hop", "halo", "mesh-slice", "mesh-flagship")
 
 
 def main(argv=None):
@@ -1315,6 +1673,8 @@ def run_phases(phases, dev, counters, stats, launches):
                 phase_kernels(dev, stats)
             {"parity": phase_parity, "hopdir": phase_hopdir,
              "halo": phase_halo}[phase](dev, stats)
+        elif phase == "hop":
+            phase_hop(dev, stats, counters, launches)
         elif phase == "identity":
             phase_identity(dev)
         elif phase == "slice":
@@ -1327,13 +1687,18 @@ def run_phases(phases, dev, counters, stats, launches):
                 for k in ("wilson_m", "loop_contract", "covariant_displace"):
                     launches[k] = got[k]
             if phase == "mesh-flagship":
-                launches["wilson_m_halo"] = phase_mesh_flagship(flagship)
+                (launches["wilson_m_halo"],
+                 launches["dslash_hop_halo"]) = phase_mesh_flagship(flagship)
         elif phase == "pc-flagship":
             launches["parity_hop"] = phase_pc_flagship(counters)["parity_hop"]
         elif phase == "mg-slice":
             phase_mg_slice(dev)
         elif phase == "mesh-slice":
-            launches["parity_hop_halo"] = phase_mesh_slice(counters)
+            k7b, k4h = phase_mesh_slice(counters)
+            launches["parity_hop_halo"] = k7b
+            # the kernels line takes K4-halo's launches from the 32^3x64
+            # sharded hop of mesh-flagship, the shape its time is taken at
+            launches.setdefault("dslash_hop_halo", k4h)
         else:
             launches["dslash_hop_dir"] = phase_mg_flagship(
                 counters)["dslash_hop_dir"]

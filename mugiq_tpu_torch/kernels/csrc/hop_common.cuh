@@ -1,12 +1,15 @@
-// Shared device code of the hopping-term kernels (K1 wilson_m.cu, K6
-// parity_hop.cu): the half-spinor projector tables, the one-hop helper and
-// the chiral clover-block row.
+// Shared device code of the hopping-term kernels (K1 wilson_m.cu, K4
+// dslash_hop.cu, K5 hop_dir.cu, K6 parity_hop.cu, K7 wilson_m_halo.cuh /
+// parity_hop_halo.cuh): the half-spinor projector tables, the one-hop
+// helper, the eight hops of one site of a full-volume field, and the
+// chiral clover-block row.
 //
 // Field layouts (sites minor; S is the stride between component planes,
 // the number of sites of one t-slice):
-//   spinor  comp = r*12 + s*3 + c
+//   spinor  comp = r*12 + s*3 + c                   (f32, or bf16 for K4)
 //   link    comp = r*9 + a*3 + b                    (f32 or bf16)
 //   clover  idx  = ((chi*6 + k)*6 + j)*2 + r        (f32 or bf16)
+// Loads of bf16 upcast to f32; all arithmetic is f32.
 
 #pragma once
 
@@ -52,16 +55,21 @@ __device__ __forceinline__ float2 ipow(int k, float2 a) {
 __device__ __forceinline__ float ldf(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
+// f32 -> the output type; bf16 rounds to nearest even, as XLA's astype
+__device__ __forceinline__ void stf(float* p, float v) { *p = v; }
+__device__ __forceinline__ void stf(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // spinor component (s, c) of the site whose comp-0 word is at p
-__device__ __forceinline__ float2 spin(const float* __restrict__ p, long long S, int s, int c) {
-  return make_float2(__ldg(p + (long long)(s * 3 + c) * S),
-                     __ldg(p + (long long)(12 + s * 3 + c) * S));
+template <typename PT>
+__device__ __forceinline__ float2 spin(const PT* __restrict__ p, long long S, int s, int c) {
+  return make_float2(ldf(p + (long long)(s * 3 + c) * S),
+                     ldf(p + (long long)(12 + s * 3 + c) * S));
 }
 
 // One directed hop: acc += R' (U or U^dag) Q' psi_nbr.
 // p: neighbour spinor (comp 0); u: link (comp 0) at the link's site.
-template <int MU, int F, bool UDAG, typename LT>
-__device__ __forceinline__ void hop(const float* __restrict__ p, const LT* __restrict__ u,
+template <int MU, int F, bool UDAG, typename PT, typename LT>
+__device__ __forceinline__ void hop(const PT* __restrict__ p, const LT* __restrict__ u,
                                     long long S, float2 acc[4][3]) {
   constexpr ProjTab P = proj_tab(MU, F);
   float2 h[2][3];
@@ -106,6 +114,41 @@ __device__ __forceinline__ void hop(const float* __restrict__ p, const LT* __res
       acc[s][c].y += v.y;
     }
   }
+}
+
+// Offsets, within one t-slice, of a site and of its x/y/z neighbours.
+struct Nbr {
+  long long c, xp, xm, yp, ym, zp, zm;
+};
+
+// D psi at one site (D^dag psi with DAG: the two projectors swap), the
+// eight directed hops in K1's order x, y, z, t, forward before backward:
+//   (1 - g_mu) U_mu(x) psi(x+mu) + (1 + g_mu) U_mu(x-mu)^dag psi(x-mu).
+// pc / pp / pm: comp 0 of the spinor t-slices t, t+1, t-1; uc: comp 0 of
+// the links [4][18] of slice t; utm: comp 0 of the t-links [18] of slice
+// t-1; S: the plane stride of all of them; n: the site's and its
+// neighbours' offsets within a slice.
+template <bool DAG, typename PT, typename LT>
+__device__ __forceinline__ void hop8(const PT* __restrict__ pc, const PT* __restrict__ pp,
+                                     const PT* __restrict__ pm, const LT* __restrict__ uc,
+                                     const LT* __restrict__ utm, long long S, const Nbr& n,
+                                     float2 acc[4][3]) {
+  // forward hops use 'fwd' (1 - g) for D and 'bwd' (1 + g) for D^dag
+  constexpr int FF = DAG ? 1 : 0;
+  constexpr int FB = DAG ? 0 : 1;
+  const long long u_mu = 18 * S;
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) acc[s][c] = make_float2(0.f, 0.f);
+  hop<0, FF, false>(pc + n.xp, uc + 0 * u_mu + n.c, S, acc);
+  hop<0, FB, true>(pc + n.xm, uc + 0 * u_mu + n.xm, S, acc);
+  hop<1, FF, false>(pc + n.yp, uc + 1 * u_mu + n.c, S, acc);
+  hop<1, FB, true>(pc + n.ym, uc + 1 * u_mu + n.ym, S, acc);
+  hop<2, FF, false>(pc + n.zp, uc + 2 * u_mu + n.c, S, acc);
+  hop<2, FB, true>(pc + n.zm, uc + 2 * u_mu + n.zm, S, acc);
+  hop<3, FF, false>(pp + n.c, uc + 3 * u_mu + n.c, S, acc);
+  hop<3, FB, true>(pm + n.c, utm + n.c, S, acc);
 }
 
 // Row (s, c) of the chiral 6x6 clover block times a spinor:

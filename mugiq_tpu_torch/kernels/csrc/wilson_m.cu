@@ -20,8 +20,9 @@
 // neighbours come from explicit (t, z, y, x) index arithmetic: an x-hop at
 // x = X-1 wraps within its row.  The backward t-hop reads the t-links of
 // slice (t-1)%T straight from U.  Loads of bf16 links/clover upcast to f32;
-// all arithmetic is f32.  The projector tables, the hop and the clover row
-// live in hop_common.cuh, shared with K6 (parity_hop.cu).
+// all arithmetic is f32.  The projector tables, the eight hops of a site
+// (hop8) and the clover row live in hop_common.cuh; K4 (dslash_hop.cu) is
+// the same hop8 with no diagonal and no combine.
 //
 // What bounds it on the H100: memory.  Per site it moves 24 floats of psi
 // (plus 8 neighbour spinors, shared with other threads through L1/L2),
@@ -55,40 +56,16 @@ wilson_m_kernel(const float* __restrict__ psi, const LT* __restrict__ U,
   const int tp = t + 1 == T ? 0 : t + 1, tm = t == 0 ? T - 1 : t - 1;
   const long long ps_t = 24 * S;   // psi t-stride
   const long long u_t = 72 * S;    // U t-stride
-  const long long u_mu = 18 * S;   // U mu-stride
   const float* pt = psi + t * ps_t;
-  const LT* ut = U + t * u_t;
   const long long zy = (long long)z * YX + (long long)y * X;
-  // forward hops use 'fwd' (1 - g) for M and 'bwd' (1 + g) for M^dag
-  constexpr int FF = DAG ? 1 : 0;
-  constexpr int FB = DAG ? 0 : 1;
-
+  const Nbr n{zyx, zy + xp, zy + xm,
+              (long long)z * YX + (long long)yp * X + x,
+              (long long)z * YX + (long long)ym * X + x,
+              (long long)zp * YX + (long long)y * X + x,
+              (long long)zm * YX + (long long)y * X + x};
   float2 acc[4][3];
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) acc[s][c] = make_float2(0.f, 0.f);
-
-  {  // x
-    const long long fw = zy + xp, bw = zy + xm;
-    hop<0, FF, false>(pt + fw, ut + 0 * u_mu + zyx, S, acc);
-    hop<0, FB, true>(pt + bw, ut + 0 * u_mu + bw, S, acc);
-  }
-  {  // y
-    const long long fw = (long long)z * YX + (long long)yp * X + x;
-    const long long bw = (long long)z * YX + (long long)ym * X + x;
-    hop<1, FF, false>(pt + fw, ut + 1 * u_mu + zyx, S, acc);
-    hop<1, FB, true>(pt + bw, ut + 1 * u_mu + bw, S, acc);
-  }
-  {  // z
-    const long long fw = (long long)zp * YX + (long long)y * X + x;
-    const long long bw = (long long)zm * YX + (long long)y * X + x;
-    hop<2, FF, false>(pt + fw, ut + 2 * u_mu + zyx, S, acc);
-    hop<2, FB, true>(pt + bw, ut + 2 * u_mu + bw, S, acc);
-  }
-  // t
-  hop<3, FF, false>(psi + tp * ps_t + zyx, ut + 3 * u_mu + zyx, S, acc);
-  hop<3, FB, true>(psi + tm * ps_t + zyx, U + tm * u_t + 3 * u_mu + zyx, S, acc);
+  hop8<DAG>(pt, psi + tp * ps_t, psi + tm * ps_t, U + t * u_t, U + tm * u_t + 3 * 18 * S, S,
+            n, acc);
 
   const float* pc = pt + zyx;
   float* o = out + t * ps_t + zyx;

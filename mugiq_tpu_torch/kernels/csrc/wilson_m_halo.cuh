@@ -1,0 +1,153 @@
+// K7a and K4-halo: the halo-extended Wilson(-clover) operator M / M^dag
+// and the bare hop D / D^dag of one rank's block, for Hopper.  This header
+// holds the kernel; wilson_m_halo.cu (K7a) and dslash_hop_halo.cu (K4's
+// halo forms) instantiate it, so the parallel build compiles them side by
+// side.
+//
+//   out = A psi - kappa * D psi          (DIAG clover / Wilson, dagger = 0: M)
+//   out = A psi - kappa * D^dag psi      (dagger = 1: M^dag)
+//   out = D psi, D^dag psi               (DIAG none: K4-halo)
+//
+// on the output rows t = t0 + k*tstep, k < nrows, of the local block, from
+// an input extended by one halo slice per side along t and, where the
+// rank grid partitions them, along z (ZEXT) and y (YEXT):
+//   psi_ext [Tl+2, 24, Zp, Yp*X]      Zp = Zl + 2*ZEXT, Yp = Yl + 2*YEXT
+//   U       [Tl, 4, 18, Zp, Yp*X]     the local links with their z/y halos
+//   Ut      [Tl, 18, Zp, Yp*X]        Ut[t] = U_t(global t - 1) (halo rows unread)
+//   A       [Tl, 144, Zl, Yl*X]       clover blocks, interior only (clover)
+//   out     [Tl, 24, Zl, Yl*X]        rows outside the launch are untouched
+// Links and clover are f32 or bf16 (upcast on load); arithmetic is f32.
+//
+// Replaces the TPU kernels of mugiq_tpu/parallel/shard_dslash.py:
+// wilson_m_pallas_ext (:112, t halo), wilson_m_pallas_ext2 (:151, t and z
+// halos), _pallas_ext3 (:199, t, z and y halos) and the interior/boundary
+// pair _m_interior_call (:314) / _m_boundary_call (:357), each in its
+// kappa form (K7a); and, with no diagonal, dslash_hop_pallas_ext (:38),
+// dslash_hop_pallas_ext2 (:74) and the kappa=None forms of _pallas_ext3,
+// _m_interior_call and _m_boundary_call (K4-halo).  The TPU kernels read
+// neighbours with non-modular block index maps and rolled tiles over the
+// extended array; here, as in K1, one
+// thread computes one output site and finds its eight neighbours by index
+// arithmetic: t, z and y neighbours come from the halo rows of the
+// extended input where that axis is extended, and wrap inside the block
+// where it is not (then the rank holds the whole axis); x is never
+// partitioned and wraps within its row.  The three halo forms are template
+// parameters, so the hot loop has no branch on them.  The row set (t0,
+// nrows, tstep) gives the single pass (0, Tl, 1), the interior rows that
+// read no t halo (1, Tl-2, 1) while the t halos travel, and the two
+// boundary rows (0, 2, Tl-1) after; every output site runs the same
+// arithmetic in every form, so the split is bit-identical to the single
+// pass.  The eight hops of a site (hop8) and the clover row are K1's and
+// K4's (hop_common.cuh), so a rank's block equals K1 / K4 on the global
+// field.
+//
+// What bounds it on the H100: memory, as K1 (~1 flop/byte against an f32
+// ridge of ~20).  Per output site it reads 24 floats of psi, 4 local and
+// 4 neighbour links (72 words), with clover 144 words, and writes 24
+// floats; the halo rows add (2 + 2*Z-halo + 2*Y-halo) slices of reads.
+// The spinors and the output stay f32 here (the sharded path's types).
+// Neighbour reuse is left to L1/L2, as in K1.
+
+#pragma once
+
+#include "hop_common.cuh"
+
+namespace {
+
+// the diagonal of the output: none (the bare hop), Wilson (psi), clover
+enum Diag { kHop = 0, kWilson = 1, kClover = 2 };
+
+template <bool DAG, int DIAG, bool ZEXT, bool YEXT, typename LT>
+__global__ void __launch_bounds__(128)
+wilson_m_halo_kernel(const float* __restrict__ psi, const LT* __restrict__ U,
+                     const LT* __restrict__ Ut, const LT* __restrict__ A,
+                     float* __restrict__ out, int Zl, int Yl, int X, int t0,
+                     int nrows, int tstep, float kappa) {
+  const int Zp = ZEXT ? Zl + 2 : Zl;
+  const int Yp = YEXT ? Yl + 2 : Yl;
+  const long long YXp = (long long)Yp * X;
+  const long long Sp = YXp * Zp;            // sites of an extended t-slice
+  const long long YXl = (long long)Yl * X;
+  const long long Sl = YXl * Zl;            // sites of an interior t-slice
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Sl * nrows) return;
+  const int k = (int)(i / Sl);
+  const int t = t0 + k * tstep;
+  const long long zyx = i - (long long)k * Sl;   // interior site
+  const int z = (int)(zyx / YXl);
+  const int y = (int)((zyx / X) % Yl);
+  const int x = (int)(zyx % X);
+  // coordinates in the extended slice, and the neighbours
+  const int ze = ZEXT ? z + 1 : z;
+  const int ye = YEXT ? y + 1 : y;
+  const int zp = ZEXT ? ze + 1 : (z + 1 == Zl ? 0 : z + 1);
+  const int zm = ZEXT ? ze - 1 : (z == 0 ? Zl - 1 : z - 1);
+  const int yp = YEXT ? ye + 1 : (y + 1 == Yl ? 0 : y + 1);
+  const int ym = YEXT ? ye - 1 : (y == 0 ? Yl - 1 : y - 1);
+  const int xp = x + 1 == X ? 0 : x + 1, xm = x == 0 ? X - 1 : x - 1;
+  const long long site = (long long)ze * YXp + (long long)ye * X + x;
+  const long long ps_t = 24 * Sp;   // psi_ext t-stride
+  const long long u_t = 72 * Sp;    // U t-stride
+  const float* pt = psi + (long long)(t + 1) * ps_t;   // extended row of t
+  const long long zy = (long long)ze * YXp + (long long)ye * X;
+  const Nbr n{site, zy + xp, zy + xm,
+              (long long)ze * YXp + (long long)yp * X + x,
+              (long long)ze * YXp + (long long)ym * X + x,
+              (long long)zp * YXp + (long long)ye * X + x,
+              (long long)zm * YXp + (long long)ye * X + x};
+  float2 acc[4][3];
+  // t: the rows t-1 and t+1 of the block are extended rows t and t+2
+  hop8<DAG>(pt, psi + (long long)(t + 2) * ps_t, psi + (long long)t * ps_t,
+            U + (long long)t * u_t, Ut + (long long)t * 18 * Sp, Sp, n, acc);
+
+  const float* pc = pt + site;
+  float* o = out + (long long)t * 24 * Sl + zyx;
+  const LT* at = DIAG == kClover ? A + (long long)t * 144 * Sl + zyx : nullptr;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if constexpr (DIAG == kHop) {
+        o[(long long)(s * 3 + c) * Sl] = acc[s][c].x;
+        o[(long long)(12 + s * 3 + c) * Sl] = acc[s][c].y;
+      } else {
+        float2 d;
+        if constexpr (DIAG == kClover) {
+          d = clover_row(at, Sl, s, c, [&](int sj, int cj) { return spin(pc, Sp, sj, cj); });
+        } else {
+          d = spin(pc, Sp, s, c);
+        }
+        o[(long long)(s * 3 + c) * Sl] = d.x - kappa * acc[s][c].x;
+        o[(long long)(12 + s * 3 + c) * Sl] = d.y - kappa * acc[s][c].y;
+      }
+    }
+  }
+}
+
+struct Args {
+  const void *psi, *U, *Ut, *A;
+  void* out;
+  int Zl, Yl, X, t0, nrows, tstep;
+  float kappa;
+  cudaStream_t st;
+};
+
+template <bool DAG, int DIAG, bool ZEXT, bool YEXT, typename LT>
+void launch(const Args& a) {
+  const long long n = (long long)a.nrows * a.Zl * a.Yl * a.X;
+  const unsigned grid = (unsigned)((n + 127) / 128);
+  wilson_m_halo_kernel<DAG, DIAG, ZEXT, YEXT, LT><<<grid, 128, 0, a.st>>>(
+      static_cast<const float*>(a.psi), static_cast<const LT*>(a.U),
+      static_cast<const LT*>(a.Ut), static_cast<const LT*>(a.A),
+      static_cast<float*>(a.out), a.Zl, a.Yl, a.X, a.t0, a.nrows, a.tstep, a.kappa);
+}
+
+// ext: 0 = t halo only, 1 = t and z, 2 = t, z and y (the JAX 1D/2D/3D forms)
+template <bool DAG, int DIAG, typename LT>
+void by_ext(int ext, const Args& a) {
+  if (ext == 0) launch<DAG, DIAG, false, false, LT>(a);
+  else if (ext == 1) launch<DAG, DIAG, true, false, LT>(a);
+  else launch<DAG, DIAG, true, true, LT>(a);
+}
+
+}  // namespace

@@ -1,11 +1,19 @@
-"""K1: the fused Wilson(-clover) operator M / M^dag on the kernel layout.
+"""The Wilson stencil kernels on the kernel layout.
 
-:func:`wilson_m` launches the CUDA kernel ``csrc/wilson_m.cu`` for CUDA
-tensors and runs its plain PyTorch twin :func:`wilson_m_plain` for CPU
-tensors; any other device raises.  The kernel replaces the TPU kernels
-``mugiq_tpu/pallas/dslash_kernel.py`` ``wilson_m_pallas`` (:395) and
-``wilson_m_pallas_gl`` (:747).  It is memory-bound (~1 flop/byte against
-an f32 ridge of ~20); see the source for its design.
+* K1 :func:`wilson_m` (``csrc/wilson_m.cu``): the fused Wilson(-clover)
+  operator M / M^dag; replaces ``mugiq_tpu/pallas/dslash_kernel.py``
+  ``wilson_m_pallas`` (:395) and ``wilson_m_pallas_gl`` (:747).
+* K4 :func:`dslash_hop` (``csrc/dslash_hop.cu``): the bare hopping term
+  D psi / D^dag psi, f32 or bf16 in and out; replaces
+  ``dslash_hop_pallas`` (:436) and ``dslash_hop_pallas_gl`` (:726).
+* K7a :func:`wilson_m_halo` and K4-halo :func:`dslash_hop_halo`
+  (``csrc/wilson_m_halo.cuh``): the same on one rank's halo-extended
+  block; replace the kernels of ``mugiq_tpu/parallel/shard_dslash.py``.
+
+Each launches its CUDA kernel for CUDA tensors and runs its plain PyTorch
+twin (``*_plain``) for CPU tensors; any other device raises.  All are
+memory-bound (~1-6 flop/byte against an f32 ridge of ~20); see the
+sources for their design.
 """
 
 import ctypes
@@ -75,17 +83,19 @@ def hop_dir_complex(p, u, mu: int, sign: int, dagger: bool):
     return torch.einsum("rs,tsazyx->trazyx", eye + sg * g, v)
 
 
-def dslash_hop_plain(psi, U, dagger: bool, Y: int):
+def dslash_hop_plain(psi, U, dagger: bool, Y: int, out_dtype=None):
     """The hopping term D psi (dagger: D^dag psi) in plain PyTorch, the sum
-    of hop_dir_complex over the 8 directed hops; links upcast to f32.
-    psi [T, 24, Z, Y*X], U [T, 4, 18, Z, Y*X] -> [T, 24, Z, Y*X] f32."""
+    of hop_dir_complex over the 8 directed hops; spinor and links upcast to
+    f32, f32 arithmetic, the result cast to out_dtype (default psi's
+    dtype; bf16 rounds to nearest even, as XLA's astype).
+    psi [T, 24, Z, Y*X], U [T, 4, 18, Z, Y*X] -> [T, 24, Z, Y*X]."""
     p = _cspinor(psi, Y)
     u = _clinks(U, Y)
     hop = torch.zeros_like(p)
     for mu in range(4):
         for sign in (1, -1):
             hop += hop_dir_complex(p, u, mu, sign, dagger)
-    return _rspinor(hop)
+    return _rspinor(hop).to(out_dtype or psi.dtype)
 
 
 def clover_apply_plain(A144, psi):
@@ -150,7 +160,69 @@ wilson_m.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K7a: the halo-extended form of one rank's block
+# K4: the bare hopping term
+# ---------------------------------------------------------------------------
+
+_fn_hop = None
+_HOP_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _entry_hop():
+    global _fn_hop
+    if _fn_hop is None:
+        fn = build.load("dslash_hop").mugiq_dslash_hop
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, I, I, I, I, I, I, I, I, P]
+        fn.restype = I
+        _fn_hop = fn
+    return _fn_hop
+
+
+def dslash_hop(psi, U, dagger: bool, Y: int, out_dtype=None, out=None):
+    """K4: out = D psi (dagger: D^dag psi), the Wilson hopping term with no
+    diagonal and no kappa.
+
+    psi [T, 24, Z, Y*X] f32 or bf16; U [T, 4, 18, Z, Y*X] phased links, f32
+    or bf16; the result in out_dtype (default: out's dtype if out is given,
+    else psi's), f32 arithmetic.  CUDA tensors launch the kernel, CPU
+    tensors run the twin."""
+    odt = out_dtype or (psi.dtype if out is None else out.dtype)
+    if psi.device.type == "cpu":
+        res = dslash_hop_plain(psi, U, dagger, Y, odt)
+        return res if out is None else out.copy_(res)
+    if psi.device.type != "cuda":
+        raise ValueError(f"dslash_hop: no kernel for device {psi.device}")
+    T, _, Z, YX = psi.shape
+    if YX % Y:
+        raise ValueError(f"dslash_hop: Y={Y} does not divide Y*X={YX}")
+    dev = psi.device
+    build.require(psi, "psi", (T, 24, Z, YX), _HOP_DTYPES, dev)
+    build.require(U, "U", (T, 4, 18, Z, YX), _HOP_DTYPES, dev)
+    if odt not in _HOP_DTYPES:
+        raise ValueError(f"dslash_hop: out_dtype {odt}, expected one of "
+                         f"{_HOP_DTYPES}")
+    if out is None:
+        out = torch.empty(psi.shape, dtype=odt, device=dev)
+    build.require(out, "out", psi.shape, (odt,), dev)
+    if out.data_ptr() == psi.data_ptr():
+        raise ValueError("dslash_hop: out must not alias psi (neighbour "
+                         "reads)")
+    bf = torch.bfloat16
+    with torch.cuda.device(dev):
+        rc = _entry_hop()(psi.data_ptr(), U.data_ptr(), out.data_ptr(), T, Z,
+                          Y, YX // Y, int(dagger), int(psi.dtype == bf),
+                          int(U.dtype == bf), int(odt == bf),
+                          build.stream_handle(dev))
+    build.check(rc, "dslash_hop")
+    dslash_hop.launches += 1
+    return out
+
+
+dslash_hop.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7a and K4-halo: the halo-extended forms of one rank's block
 # ---------------------------------------------------------------------------
 
 _fn_halo = None
@@ -269,6 +341,46 @@ def wilson_m_halo_plain(psi_ext, U, Ut_shift, A144, kappa: float,
                                                 Y, z_ext, y_ext, rows)
 
 
+def _halo_cpu(res, U, rows, out):
+    """A twin's output rows placed as the kernel leaves them: the result
+    itself for every row, else written into out (zeros if None)."""
+    if out is None and rows is None:
+        return res
+    if out is None:
+        out = torch.zeros((U.shape[0],) + tuple(res.shape[1:]),
+                          dtype=torch.float32)
+    out[halo_rows(rows, U.shape[0])] = res
+    return out
+
+
+def _halo_cuda(what, psi_ext, U, Ut_shift, Y, z_ext, y_ext, rows, out):
+    """The operands K7a and K4-halo share, checked, and out allocated;
+    returns (out, (t0, nrows, tstep), ext, Zl, X) for the launch."""
+    Tl = U.shape[0]
+    Zl, Zp, Yp, X = halo_shapes(psi_ext, Y, z_ext, y_ext, Tl)
+    halo_rows(rows, Tl)
+    if psi_ext.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {psi_ext.device}")
+    dev = psi_ext.device
+    if psi_ext.dtype == torch.bfloat16:
+        raise ValueError(f"{what}: bf16 halo-extended spinors are not "
+                         f"ported (ROADMAP queue 1 item 14: the sharded path "
+                         f"runs f32 spinors)")
+    build.require(psi_ext, "psi_ext", (Tl + 2, 24, Zp, Yp * X),
+                  (torch.float32,), dev)
+    build.require(U, "U", (Tl, 4, 18, Zp, Yp * X),
+                  (torch.float32, torch.bfloat16), dev)
+    build.require(Ut_shift, "Ut_shift", (Tl, 18, Zp, Yp * X), (U.dtype,), dev)
+    oshape = (Tl, 24, Zl, Y * X)
+    if out is None:
+        out = torch.empty(oshape, dtype=torch.float32, device=dev)
+    build.require(out, "out", oshape, (torch.float32,), dev)
+    if out.data_ptr() == psi_ext.data_ptr():
+        raise ValueError(f"{what}: out must not alias psi_ext")
+    rows = (0, Tl, 1) if rows is None else tuple(int(v) for v in rows)
+    return out, rows, 2 if y_ext else int(z_ext), Zl, X
+
+
 def wilson_m_halo(psi_ext, U, Ut_shift, A144, kappa: float, dagger: bool,
                   Y: int, z_ext: bool, y_ext: bool, rows=None, out=None):
     """K7a: out[rows] = (A psi - kappa D psi)[rows] (M, or M^dag) of one
@@ -281,44 +393,22 @@ def wilson_m_halo(psi_ext, U, Ut_shift, A144, kappa: float, dagger: bool,
     U's dtype or None.  rows (t0, nrows, tstep) or None for all; out
     [Tl, 24, Zl, Y*X] (rows outside the launch are left as they are).
     CUDA tensors launch the kernel, CPU tensors run the twin."""
-    Tl = U.shape[0]
-    Zl, Zp, Yp, X = halo_shapes(psi_ext, Y, z_ext, y_ext, Tl)
-    r = halo_rows(rows, Tl)
-    oshape = (Tl, 24, Zl, Y * X)
     if psi_ext.device.type == "cpu":
-        res = wilson_m_halo_plain(psi_ext, U, Ut_shift, A144, kappa, dagger,
-                                  Y, z_ext, y_ext, rows)
-        if out is None and rows is None:
-            return res
-        if out is None:
-            out = torch.zeros(oshape, dtype=torch.float32)
-        out[r] = res
-        return out
-    if psi_ext.device.type != "cuda":
-        raise ValueError(f"wilson_m_halo: no kernel for device "
-                         f"{psi_ext.device}")
-    dev = psi_ext.device
-    build.require(psi_ext, "psi_ext", (Tl + 2, 24, Zp, Yp * X),
-                  (torch.float32,), dev)
-    build.require(U, "U", (Tl, 4, 18, Zp, Yp * X),
-                  (torch.float32, torch.bfloat16), dev)
-    build.require(Ut_shift, "Ut_shift", (Tl, 18, Zp, Yp * X), (U.dtype,), dev)
+        return _halo_cpu(wilson_m_halo_plain(psi_ext, U, Ut_shift, A144,
+                                             kappa, dagger, Y, z_ext, y_ext,
+                                             rows), U, rows, out)
+    out, (t0, n, step), ext, Zl, X = _halo_cuda(
+        "wilson_m_halo", psi_ext, U, Ut_shift, Y, z_ext, y_ext, rows, out)
+    dev = out.device
     if A144 is not None:
-        build.require(A144, "A144", (Tl, 144, Zl, Y * X), (U.dtype,), dev)
-    if out is None:
-        out = torch.empty(oshape, dtype=torch.float32, device=dev)
-    build.require(out, "out", oshape, (torch.float32,), dev)
-    if out.data_ptr() == psi_ext.data_ptr():
-        raise ValueError("wilson_m_halo: out must not alias psi_ext")
-    t0, n, step = (0, Tl, 1) if rows is None else rows
-    ext = 2 if y_ext else int(z_ext)
+        build.require(A144, "A144", (U.shape[0], 144, Zl, Y * X), (U.dtype,),
+                      dev)
     with torch.cuda.device(dev):
         rc = _entry_halo()(psi_ext.data_ptr(), U.data_ptr(),
                            Ut_shift.data_ptr(),
                            None if A144 is None else A144.data_ptr(),
-                           out.data_ptr(), Zl, Y, X, int(t0), int(n),
-                           int(step), ext, float(kappa), int(dagger),
-                           int(A144 is not None),
+                           out.data_ptr(), Zl, Y, X, t0, n, step, ext,
+                           float(kappa), int(dagger), int(A144 is not None),
                            int(U.dtype == torch.bfloat16),
                            build.stream_handle(dev))
     build.check(rc, "wilson_m_halo")
@@ -327,3 +417,46 @@ def wilson_m_halo(psi_ext, U, Ut_shift, A144, kappa: float, dagger: bool,
 
 
 wilson_m_halo.launches = 0
+
+
+_fn_hop_halo = None
+
+
+def _entry_hop_halo():
+    global _fn_hop_halo
+    if _fn_hop_halo is None:
+        fn = build.load("dslash_hop_halo").mugiq_dslash_hop_halo
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, I, P]
+        fn.restype = I
+        _fn_hop_halo = fn
+    return _fn_hop_halo
+
+
+def dslash_hop_halo(psi_ext, U, Ut_shift, dagger: bool, Y: int, z_ext: bool,
+                    y_ext: bool, rows=None, out=None):
+    """K4-halo: out[rows] = (D psi)[rows] (dagger: D^dag psi) of one rank's
+    block from its halo-extended input, with no diagonal and no kappa.
+
+    The operands, halo forms and row sets of :func:`wilson_m_halo` (f32
+    spinors, f32 or bf16 links, an f32 output).  CUDA tensors launch the
+    kernel, CPU tensors run the twin."""
+    if psi_ext.device.type == "cpu":
+        return _halo_cpu(dslash_hop_halo_plain(psi_ext, U, Ut_shift, dagger,
+                                               Y, z_ext, y_ext, rows),
+                         U, rows, out)
+    out, (t0, n, step), ext, Zl, X = _halo_cuda(
+        "dslash_hop_halo", psi_ext, U, Ut_shift, Y, z_ext, y_ext, rows, out)
+    dev = out.device
+    with torch.cuda.device(dev):
+        rc = _entry_hop_halo()(psi_ext.data_ptr(), U.data_ptr(),
+                               Ut_shift.data_ptr(), out.data_ptr(), Zl, Y, X,
+                               t0, n, step, ext, int(dagger),
+                               int(U.dtype == torch.bfloat16),
+                               build.stream_handle(dev))
+    build.check(rc, "dslash_hop_halo")
+    dslash_hop_halo.launches += 1
+    return out
+
+
+dslash_hop_halo.launches = 0

@@ -1,14 +1,16 @@
 """The local stencil of one rank's block with its halo exchange (port of
-mugiq_tpu.parallel.shard_dslash: make_sharded_wilson_m, _2d, _3d and the
-interior/boundary split _overlap_apply).
+mugiq_tpu.parallel.shard_dslash: make_sharded_wilson_m, _2d, _3d, the bare
+hop's make_sharded_dslash, _2d and make_sharded_wilson_3d(kappa=None), and
+the interior/boundary split _overlap_apply).
 
 The JAX package builds a halo-extended copy of the local block from
 ppermuted slices and runs the Pallas stencil on it.  Here a preallocated
 extended buffer [Tl+2, 24, Zp, Yp*W] takes the block in its interior,
 :class:`.halo.HaloExchange` fills its halos (y, then z, then t), and the
 K7 kernels (kernels.wilson.wilson_m_halo, kernels.parity.parity_hop_halo)
-read it.  With ``overlap`` (the default, as in the JAX package) the
-interior rows 1..Tl-2, which read no t halo, launch while the t halos
+or K4-halo (kernels.wilson.dslash_hop_halo) read it.  With ``overlap``
+(the default, as in the JAX package) the interior rows 1..Tl-2, which read
+no t halo, launch while the t halos
 travel, and the two boundary rows after they arrive; every output site
 runs the same arithmetic either way, so the two forms are bit-identical
 (shard_dslash.py:308-312).  The JAX 3D form runs without the split
@@ -16,6 +18,8 @@ runs the same arithmetic either way, so the two forms are bit-identical
 """
 
 import torch
+
+from ..kernels.wilson import dslash_hop_halo
 
 
 def ext_dims(mesh, W: int):
@@ -98,3 +102,31 @@ def extend_along(halo, a, axis: str, dim: int, width: int):
     ext.narrow(dim, width, a.shape[dim]).copy_(a)
     halo.exchange(ext, axis, dim, width)
     return ext
+
+
+def make_sharded_dslash(mesh, halo, ext, dagger: bool = False,
+                        overlap: bool = True):
+    """The rank's bare hop D psi (dagger: D^dag psi) over any (t, z[, y])
+    mesh: the three JAX factories make_sharded_dslash (t), _2d (t, z) and
+    make_sharded_wilson_3d(kappa=None) (t, z, y) in one.  Returns
+    hop(psi_loc, U_ext, Ut_shift) -> [Tl, 24, Zl, Yl*X] f32, with psi_loc
+    the block [Tl, 24, Zl, Yl*X] and the links extended once by
+    extend_links (the JAX functions take the raw links and re-permute them
+    on every call).  halo, ext: the operator's exchange and extended f32
+    buffer [Tl+2, 24, Zp, Yp*X], shared with its M; overlap: the
+    interior/boundary split."""
+    Yl = mesh.local["y"]
+
+    def hop(psi_loc, U_ext, Ut_shift):
+        out = torch.empty(psi_loc.shape, dtype=torch.float32,
+                          device=psi_loc.device)
+
+        def launch(rows):
+            dslash_hop_halo(ext, U_ext, Ut_shift, dagger, Yl, mesh.z_ext,
+                            mesh.y_ext, rows=rows, out=out)
+
+        apply_halo(halo, ext, psi_loc, launch, mesh, psi_loc.shape[3] // Yl,
+                   overlap)
+        return out
+
+    return hop

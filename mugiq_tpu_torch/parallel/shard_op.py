@@ -3,7 +3,8 @@ mugiq_tpu.parallel.shard_op: ShardedWilsonKernel, ShardedSchurKernelPacked).
 
 Each rank holds its block of the kernel-layout fields; M and M^dag are one
 halo exchange and one K7 stencil pass (hop, clover diagonal and kappa
-combine in the kernel, as K1); the packed Schur operator is two, as K6's.
+combine in the kernel, as K1); the bare hop _hop / _hop_dag one exchange
+and one K4-halo pass; the packed Schur operator is two, as K6's.
 The Krylov algebra runs on the local blocks and reduces its inner
 products over the ranks (lanczos.py's ``reduce``), so nothing else of the
 eigensolver changes.  Reference counterpart: QUDA's multi-GPU Dirac
@@ -19,7 +20,8 @@ from ..kernels.parity import parity_hop_halo
 from ..kernels.wilson import wilson_m_halo
 from ..params import EigOperator
 from .halo import HaloExchange
-from .shard_dslash import apply_halo, ext_dims, extend_links
+from .shard_dslash import (apply_halo, ext_dims, extend_links,
+                           make_sharded_dslash)
 
 
 class _Sharded:
@@ -59,7 +61,10 @@ class ShardedWilsonKernel(_Sharded):
     U_loc [Tl, 4, 18, Zl, Yl*X] the block's phased links (f32 or bf16),
     A144_loc [Tl, 144, Zl, Yl*X] its clover blocks or None.  The links'
     z/y halos and the shifted t-links are exchanged here, once.
-    overlap: the interior/boundary split of shard_dslash.apply_halo."""
+    overlap: the interior/boundary split of shard_dslash.apply_halo.
+    _hop / _hop_dag: the bare hop D / D^dag of the block on the same links,
+    exchange and extended buffer (shard_dslash.make_sharded_dslash), as
+    the JAX class builds them."""
 
     def __init__(self, mesh, U_loc: torch.Tensor, kappa: float,
                  A144_loc: Optional[torch.Tensor] = None,
@@ -81,6 +86,11 @@ class ShardedWilsonKernel(_Sharded):
         self._ext = torch.zeros((Tl + 2, 24, Zp, YXp), dtype=torch.float32,
                                 device=dev)
         self._field_shape = (Tl, 24, Zl, YXl)
+        hops = [make_sharded_dslash(mesh, self.halo, self._ext, dagger=d,
+                                    overlap=overlap)
+                for d in (False, True)]
+        self._hop = lambda psi: hops[0](psi, self.U_ext, self.Ut_shift)
+        self._hop_dag = lambda psi: hops[1](psi, self.U_ext, self.Ut_shift)
 
     def _apply(self, psi, dagger: bool):
         out = torch.empty(self._field_shape, dtype=torch.float32,

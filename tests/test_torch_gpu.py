@@ -9,9 +9,12 @@ Small odd extents exercise every periodic wrap of the index arithmetic;
 K6 needs even ones (the checkerboard), distinct so that no two axes can be
 confused.  K7a and K7b run on the block of a rank away from the origin of
 each mesh kind (t; t and z; t, z and y halos), with the interior and
-boundary row launches held to the single pass bit for bit.  Tolerances are f32 summation order only: K1, K5 and K6 2e-5 of max
-|out| (up to ~100 terms per output, half-spinor vs full-projector form,
-K6's twin at full volume), K2 2e-6, K3 1e-6.
+boundary row launches held to the single pass bit for bit; K4-halo
+likewise, and K4 in all 16 type variants.  Tolerances are f32 summation
+order only: K1, K4, K5 and K6 2e-5 of max |out| (up to ~100 terms per
+output, half-spinor vs full-projector form, K6's twin at full volume), K2
+2e-6, K3 1e-6; a bf16 output of K4 one bf16 ulp of the largest output
+(2^-7 of max |out|).
 """
 
 import pytest
@@ -25,7 +28,10 @@ from mugiq_tpu_torch.kernels.contract import (
     loop_contract_plain)
 from mugiq_tpu_torch.kernels.parity import (parity_hop_halo,
                                             parity_hop_halo_plain)
-from mugiq_tpu_torch.kernels.wilson import (wilson_m, wilson_m_halo,
+from mugiq_tpu_torch.kernels.wilson import (dslash_hop, dslash_hop_halo,
+                                            dslash_hop_halo_plain,
+                                            dslash_hop_plain, wilson_m,
+                                            wilson_m_halo,
                                             wilson_m_halo_plain, wilson_m_plain)
 from mugiq_tpu_torch.params import parse_disp_str
 from mugiq_tpu_torch.parallel.mesh import LatticeMesh
@@ -130,6 +136,29 @@ def test_hop_dir_matches_twin_on_card(prec, dagger, dstr):
     assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("psi_t", ["f32", "bf16"])
+@pytest.mark.parametrize("link_t", ["f32", "bf16"])
+@pytest.mark.parametrize("out_t", ["f32", "bf16"])
+@pytest.mark.parametrize("dagger", [False, True])
+def test_dslash_hop_matches_twin_on_card(psi_t, link_t, out_t, dagger):
+    dev = cuda_device()
+    T, Z, Y, X = 4, 3, 5, 6
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    psi = torch.from_numpy(rand((T, 24, Z, Y * X), 1)).to(dev).to(dt[psi_t])
+    U = torch.from_numpy(rand((T, 4, 18, Z, Y * X), 2, 0.5)).to(dev).to(
+        dt[link_t])
+    ref = dslash_hop_plain(psi, U, dagger, Y, dt[out_t])
+    n0 = dslash_hop.launches
+    got = dslash_hop(psi, U, dagger, Y, out_dtype=dt[out_t])
+    torch.cuda.synchronize()
+    assert dslash_hop.launches == n0 + 1
+    assert got.dtype == dt[out_t]
+    tol = 2.0 ** -7 if out_t == "bf16" else 2e-5
+    assert float((got.float() - ref.float()).abs().max()) <= \
+        tol * float(ref.float().abs().max())
+
+
 MESH_KINDS = [(2, 1), (2, 2), (2, 2, 2)]
 
 
@@ -207,5 +236,34 @@ def test_parity_hop_halo_matches_twin_on_card(mesh, prec, mode, dagger):
     parity_hop_halo(*args, **kw, rows=(0, 2, Tl - 1), out=split)
     torch.cuda.synchronize()
     assert parity_hop_halo.launches == n0 + 3
+    assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+    assert torch.equal(split, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh", MESH_KINDS, ids=str)
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("dagger", [False, True])
+def test_dslash_hop_halo_matches_twin_on_card(mesh, prec, dagger):
+    dev = cuda_device()
+    dims = (5, 6, 4, 8)                     # X, Y, Z, T
+    X, Y, Z, T = dims
+    dt = torch.bfloat16 if prec == "bf16" else torch.float32
+    psi = torch.from_numpy(rand((T, 24, Z, Y * X), 1)).to(dev)
+    U = torch.from_numpy(rand((T, 4, 18, Z, Y * X), 2, 0.5)).to(dev).to(dt)
+    m = LatticeMesh(mesh, dims, rank=_far_rank(mesh, dims), device=dev)
+    ze, ye, Yl, Tl = m.z_ext, m.y_ext, m.local["y"], m.local["t"]
+    args = (m.ext_block(psi, t=True, z=ze, y=ye),
+            m.ext_block(U, t=False, z=ze, y=ye),
+            m.ext_block(torch.roll(U[:, 3], 1, 0), t=False, z=ze, y=ye),
+            dagger, Yl, ze, ye)
+    ref = dslash_hop_halo_plain(*args)
+    n0 = dslash_hop_halo.launches
+    got = dslash_hop_halo(*args)
+    split = torch.full_like(got, float("nan"))
+    dslash_hop_halo(*args, rows=(1, Tl - 2, 1), out=split)
+    dslash_hop_halo(*args, rows=(0, 2, Tl - 1), out=split)
+    torch.cuda.synchronize()
+    assert dslash_hop_halo.launches == n0 + 3
     assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
     assert torch.equal(split, got)

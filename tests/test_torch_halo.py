@@ -1,6 +1,7 @@
-"""K7a and K7b (the halo-extended Wilson and parity hops of one rank's
-block, kernels/wilson.py wilson_m_halo, kernels/parity.py parity_hop_halo):
-their plain PyTorch twins on the CPU.
+"""K7a, K4-halo and K7b (the halo-extended Wilson operator, bare hop and
+parity hop of one rank's block, kernels/wilson.py wilson_m_halo and
+dslash_hop_halo, kernels/parity.py parity_hop_halo): their plain PyTorch
+twins on the CPU.
 
 * Slab ties, without JAX: a global (X, Y, Z, T) = (4, 4, 4, 8) field is
   split into the blocks of every mesh kind ((2, 1) t only, (4, 1) with a
@@ -10,8 +11,9 @@ their plain PyTorch twins on the CPU.
   gives) and the K7 outputs, concatenated, equal K1's / K6's twin on the
   global field to 1e-6 of max |out| (the same f32 arithmetic per site;
   in practice exact).  Every variant: M / M^dag, Wilson / clover, f32 /
-  bf16 links; K7b's four modes, both output parities.  The interior and
-  boundary row launches give the single pass bit for bit.
+  bf16 links; K4-halo's D / D^dag against K4's twin; K7b's four modes,
+  both output parities.  The interior and boundary row launches give the
+  single pass bit for bit.
 * Against the JAX package: wilson_m_pallas_ext, wilson_m_pallas_ext2,
   _pallas_ext3, _m_interior_call, _m_boundary_call
   (parallel/shard_dslash.py) and parity_hop_pallas_ext,
@@ -21,7 +23,11 @@ their plain PyTorch twins on the CPU.
   |out| (f32 summation order; both upcast the same bf16 links).  The
   3D form of each runs by default; the other functions and the full
   variant sweep are marked slow: each case compiles an interpret-mode
-  kernel, ~20-30 s each on a CPU.
+  kernel, ~20-30 s each on a CPU.  K4-halo's twin against
+  dslash_hop_pallas_ext, dslash_hop_pallas_ext2 and the kappa=None forms
+  of _pallas_ext3, _m_interior_call and _m_boundary_call is slow in every
+  case (its slab tie to K4's twin, which tests/test_torch_hop.py holds to
+  dslash_hop_pallas, runs by default).
 """
 
 import itertools
@@ -32,7 +38,9 @@ import pytest
 import torch
 
 from mugiq_tpu_torch.kernels.parity import parity_hop_halo, parity_hop_plain
-from mugiq_tpu_torch.kernels.wilson import wilson_m_halo, wilson_m_plain
+from mugiq_tpu_torch.kernels.wilson import (dslash_hop_halo,
+                                            dslash_hop_plain, wilson_m_halo,
+                                            wilson_m_plain)
 from mugiq_tpu_torch.parallel.mesh import LatticeMesh
 from mugiq_tpu_torch.schur_kernel import pack_parity, pack_parity_gauge
 
@@ -91,6 +99,31 @@ def test_k7a_slab_tie(mesh, prec, clover, dagger):
         wilson_m_halo(*args, KAPPA, dagger, Yl, m.z_ext, m.y_ext,
                       rows=(0, 2, Tl - 1) if Tl > 1 else (0, 1, 1),
                       out=split)
+        assert torch.equal(split, full)
+        m.local_block(got)[...] = full
+    err = float((got - ref).abs().max()) / float(ref.abs().max())
+    assert err <= 1e-6
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=str)
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("dagger", [False, True])
+def test_k4_halo_slab_tie(mesh, prec, dagger):
+    psi, U, A = _fields(prec)
+    ref = dslash_hop_plain(psi, U, dagger, Y)
+    got = torch.zeros_like(ref)
+    for r in range(LatticeMesh(mesh, DIMS).world):
+        m = LatticeMesh(mesh, DIMS, rank=r)
+        args = _rank_inputs(m, psi, U, A, False)[:3]
+        Yl, Tl = m.local["y"], m.local["t"]
+        full = dslash_hop_halo(*args, dagger, Yl, m.z_ext, m.y_ext)
+        split = torch.full_like(full, float("nan"))
+        if Tl > 2:
+            dslash_hop_halo(*args, dagger, Yl, m.z_ext, m.y_ext,
+                            rows=(1, Tl - 2, 1), out=split)
+        dslash_hop_halo(*args, dagger, Yl, m.z_ext, m.y_ext,
+                        rows=(0, 2, Tl - 1) if Tl > 1 else (0, 1, 1),
+                        out=split)
         assert torch.equal(split, full)
         m.local_block(got)[...] = full
     err = float((got - ref).abs().max()) / float(ref.abs().max())
@@ -229,6 +262,46 @@ def _k7a_vs_jax(form, prec, clover, dagger):
     _close(got, want)
 
 
+def _k4h_vs_jax(form, prec, dagger):
+    """K4-halo's twin against the hop forms of the JAX halo kernels: ext
+    (t mesh), ext2 (t x z), ext3 (t x z x y), interior and boundary (t x z
+    and t halves of the overlap split), kappa=None."""
+    import mugiq_tpu.parallel.shard_dslash as sd
+
+    psi, U, A = _fields(prec)
+    mesh = {"ext": (2, 1), "ext2": (2, 2), "ext3": (2, 2, 2),
+            "interior": (2, 2), "boundary": (2, 1)}[form]
+    m = LatticeMesh(mesh, DIMS, rank=m_rank(mesh))
+    pe, Ue, Ute, _ = _rank_inputs(m, psi, U, A, False)
+    Yl, Tl = m.local["y"], m.local["t"]
+    got = dslash_hop_halo(pe, Ue, Ute, dagger, Yl, m.z_ext, m.y_ext)
+    jp = jnp.asarray(pe.numpy())
+    if form == "ext":
+        want = sd.dslash_hop_pallas_ext(jp, _jx(Ue, prec), _jx(Ute, prec),
+                                        Y=Yl, dagger=dagger)
+    elif form == "ext2":
+        want = sd.dslash_hop_pallas_ext2(jp, _jx(Ue, prec), _jx(Ute, prec),
+                                         Y=Yl, dagger=dagger)
+    elif form == "ext3":
+        want = sd._pallas_ext3(jp, _jx(Ue, prec), _jx(Ute, prec), None,
+                               Y=Yl, kappa=None, dagger=dagger)
+    else:
+        z = m.z_ext
+        psi_loc = jnp.asarray(pe[1:-1].numpy())
+        ut_loc = _jx(m.ext_block(U[:, 3], t=False, z=z), prec)
+        if form == "interior":
+            want = sd._m_interior_call(psi_loc, _jx(Ue, prec), ut_loc, None,
+                                       Yl, None, dagger, False, z_ext=z)
+            got = got[1:Tl - 1]
+        else:
+            want = sd._m_boundary_call(
+                psi_loc, jnp.asarray(pe[:1].numpy()),
+                jnp.asarray(pe[-1:].numpy()), _jx(Ue, prec), ut_loc,
+                _jx(Ute[:1], prec), None, Yl, None, dagger, False, z_ext=z)
+            got = got[[0, Tl - 1]]
+    _close(got, want)
+
+
 def m_rank(mesh):
     """A rank away from the origin on every partitioned axis, so that a
     wrong neighbour or halo cannot hide behind the periodic wrap."""
@@ -279,6 +352,7 @@ def _k7b_vs_jax(form, prec, mode, dagger, parity_out):
 # M^dag, bf16 links); the other forms and variants are the slow sweep
 K7A_DEFAULT = [("ext3", "bf16", True, True)]
 K7B_DEFAULT = [("extzy", "bf16", "pass2+A_comb", True, 0)]
+K4H_DEFAULT = [("ext3", "f32", False)]
 
 
 @pytest.mark.parametrize("case", K7A_DEFAULT, ids=lambda c: "-".join(
@@ -293,6 +367,12 @@ def test_k7b_matches_jax(case):
     _k7b_vs_jax(*case)
 
 
+@pytest.mark.parametrize("case", K4H_DEFAULT, ids=lambda c: "-".join(
+    map(str, c)))
+def test_k4_halo_matches_jax(case):
+    _k4h_vs_jax(*case)
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("case", [
     c for c in itertools.product(["ext", "ext2", "ext3", "interior",
@@ -301,6 +381,16 @@ def test_k7b_matches_jax(case):
     if c not in K7A_DEFAULT], ids=lambda c: "-".join(map(str, c)))
 def test_k7a_matches_jax_sweep(case):
     _k7a_vs_jax(*case)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", [
+    c for c in itertools.product(["ext", "ext2", "ext3", "interior",
+                                  "boundary"], ["f32", "bf16"],
+                                 [False, True])
+    if c not in K4H_DEFAULT], ids=lambda c: "-".join(map(str, c)))
+def test_k4_halo_matches_jax_sweep(case):
+    _k4h_vs_jax(*case)
 
 
 @pytest.mark.slow

@@ -19,7 +19,10 @@ rank), at (X, Y, Z, T) = (4, 4, 4, 8):
 * Each rank's sharded operator on a random field against the
   single-device operator's block (1e-6 of max; the same f32 arithmetic
   per site), and the interior/boundary split (overlap=True) against the
-  single pass (overlap=False), bit for bit.
+  single pass (overlap=False), bit for bit.  On the loop's meshes (2 1,
+  2 2, 2 2 2) also the sharded bare hop (ShardedWilsonKernel._hop and
+  _hop_dag, K4-halo over the exchange) against K4's twin on the global
+  field, 1e-6 of max, split and single pass bit for bit.
 * In process: --mesh 1 1 on one rank without a process group equals the
   single-device run exactly; the errors (NCCL with ranks sharing a card,
   odd local extents with direct-pc, --mesh with MG, bad mesh shapes).
@@ -201,6 +204,15 @@ def test_mesh_operator_and_overlap(runs, run):
     got, _ = runs
     for res in got[run]:
         assert float(res["op_err"]) <= 1e-6
+        assert bool(res["overlap_same"])
+
+
+@pytest.mark.parametrize("run", [r for r in RUNS if r[1] == "loop"],
+                         ids=lambda r: f"{r[1]}-{r[0]}")
+def test_mesh_bare_hop(runs, run):
+    got, _ = runs
+    for res in got[run]:
+        assert float(res["hop_err"]) <= 1e-6
         assert bool(res["overlap_same"])
 
 

@@ -7,9 +7,10 @@ JOBS.json lists {"name", "mode" ("loop" or "eig"), "argv"} jobs whose CLI
 flags share one --mesh.  For each job the rank checks its sharded operator
 on a random field against the single-device operator's block of the same
 field (M, M^dag, M^dag M: the full operator for "loop", the packed one for
-"eig --solve-type direct-pc") and the interior/boundary split against the
-single pass, bit for bit; then runs the loop or eigensolve CLI's run()
-and writes its results to OUTDIR/<name>.rank<r>.npz.
+"eig --solve-type direct-pc"; for "loop" also the bare hop _hop / _hop_dag
+against K4's twin on the global field) and the interior/boundary split
+against the single pass, bit for bit; then runs the loop or eigensolve
+CLI's run() and writes its results to OUTDIR/<name>.rank<r>.npz.
 """
 
 import json
@@ -25,6 +26,7 @@ from mugiq_tpu_torch.cli import eigensolve as cli_eig  # noqa: E402
 from mugiq_tpu_torch.cli import loop as cli_loop  # noqa: E402
 from mugiq_tpu_torch.cli.common import build_mesh, build_params  # noqa: E402
 from mugiq_tpu_torch.io.gauge_io import load_gauge_np  # noqa: E402
+from mugiq_tpu_torch.kernels.wilson import dslash_hop  # noqa: E402
 from mugiq_tpu_torch.lattice import LatticeGeometry  # noqa: E402
 from mugiq_tpu_torch.parallel.distributed import (  # noqa: E402
     shutdown_distributed)
@@ -36,7 +38,9 @@ from mugiq_tpu_torch.production import (build_kernel_dirac,  # noqa: E402
 
 def op_check(cli, argv):
     """(max rel err of the sharded operator against the single-device
-    block, overlap split bit-identical to the single pass, mesh)."""
+    block, overlap split bit-identical to the single pass, max rel err of
+    the bare hop against K4 on the global field (full operator only, else
+    0), mesh)."""
     args = cli.parse_args(argv)
     gp, ip, _ = build_params(args)
     mesh, _ = build_mesh(args, gp.dims)
@@ -64,14 +68,23 @@ def op_check(cli, argv):
         err = max(err, float((got[0] - want).abs().max()
                              / want.abs().max()))
         same = same and torch.equal(got[0], got[1])
-    return err, same, mesh
+    hop_err = 0.0
+    if not pc:
+        for dagger, name in ((False, "_hop"), (True, "_hop_dag")):
+            want = mesh.local_block(dslash_hop(psi, single.U_k, dagger,
+                                               single.Y))
+            got = [getattr(op, name)(loc) for op in ops]
+            hop_err = max(hop_err, float((got[0] - want).abs().max()
+                                         / want.abs().max()))
+            same = same and torch.equal(got[0], got[1])
+    return err, same, hop_err, mesh
 
 
 def main():
     out = Path(sys.argv[1])
     for job in json.loads(Path(sys.argv[2]).read_text()):
         cli = cli_loop if job["mode"] == "loop" else cli_eig
-        err, same, mesh = op_check(cli, job["argv"])
+        err, same, hop_err, mesh = op_check(cli, job["argv"])
         if job["mode"] == "loop":
             res = cli.run(job["argv"])
             evals, sigma, resids = res.evals, res.sigma, res.resids
@@ -83,7 +96,8 @@ def main():
                  evals=np.asarray(evals), sigma=np.asarray(sigma),
                  resids=np.asarray(resids), data_mom=data_mom,
                  n_restarts=res.n_restarts, converged=res.converged,
-                 op_err=err, overlap_same=same, evec_shape=np.asarray(shape),
+                 op_err=err, overlap_same=same, hop_err=hop_err,
+                 evec_shape=np.asarray(shape),
                  local_dims=np.asarray(mesh.local_dims))
     shutdown_distributed()
 
