@@ -16,14 +16,35 @@ Phases (each prints its own lines and raises on failure):
   parity    K6 against its twin at 32^3x64 in every variant (pass 1 with
             and without A_post, pass 2 with and without A_comb, M and M^dag,
             f32 and bf16 links), with times and bounds;
+  bf16      K1 and K6 with bf16 spinors (bf16 in, bf16 out; f32 and bf16
+            links, both daggers, Wilson and clover, every K6 pass) against
+            their twins at 32^3x64 within one bf16 ulp of max |out|; the
+            batched launch (b = 4, f32 and bf16 spinors) against four
+            single launches, exactly; times and bounds of every form;
   identity  K6 tied to K1 at 32^3x64: M_pc psi_e equals the even half of
             K1(psi_e, psi_o) with psi_o = A_oo^-1 kappa D_oe psi_e, whose
             odd half vanishes (Wilson and clover, M and M^dag);
   slice     the loop slice at 8^3x16 through the kernels on the card
             against the same slice through the twins on the CPU;
   pc-slice  the even-odd preconditioned eigensolve at 8^3x16, likewise;
+  bf16-restart  the JAX package's TPU restart bench (bench.py
+            _bench_eig32_restart: 32^3x64, random-normal links, MdagM, nKr
+            24, nEv 8) through the port: warm s/restart with bf16 links and
+            a bf16 basis, and with f32 links and an f32 basis;
+  bf16-slice  the bf16-basis eigensolve at 8^3x16 (full and pc operator)
+            through the kernels on the card against the twins on the CPU,
+            and against the f32 basis;
+  block-slice  block Lanczos (b = 4) of the pc eigensolve at 8^3x16
+            through K6's batched launch against the twins and b = 1;
+  arnoldi-slice  the Krylov-Schur Arnoldi of M and M^dag at 8^3x16
+            (compute_evecs_production; no CLI reaches it) through the
+            kernels against the twins;
   flagship  the flagship 32^3x64 loop through the CLI
             (mugiq_tpu_torch.cli.loop);
+  bf16-flagship, block-flagship  the same invocation with
+            --basis-precision bf16, and with --eig-block-size 4, held to
+            the f32 flagship's eigenvalues (3e-2, residual < 0.1; 1e-4,
+            residual < 1e-3);
   pc-flagship  the flagship 32^3x64 pc eigensolve through the CLI
             (mugiq_tpu_torch.cli.eigensolve --solve-type direct-pc);
   hopdir    K5 against its twin at 32^3x64 for all 8 (mu, sign), M and
@@ -50,8 +71,9 @@ Phases (each prints its own lines and raises on failure):
             boundary launch times; every rank's block concatenated tied to
             K1, K4 and K6 on the global field;
   mesh-slice  the 8^3x16 loop over --mesh 2 2 2 (8 ranks on the card,
-            gloo) and the pc eigensolve over --mesh 2 1, held to the same
-            runs on one device; the sharded bare hop (ShardedWilsonKernel
+            gloo) and the pc eigensolve, its block Lanczos (b = 4) and the
+            Arnoldi of M over --mesh 2 1, held to the same runs on one
+            device; the sharded bare hop (ShardedWilsonKernel
             _hop / _hop_dag, K4-halo) over 2 1 and 2 2 2, each rank held
             to K4's twin and to K4 on the global field;
   mesh-flagship  the 32^3x64 loop flagship over --mesh 1 1 (one rank,
@@ -67,8 +89,10 @@ and K4-halo have no CLI path (in the JAX package neither): their main
 paths are the masked operator's M^dag M applications in `hop` and the
 sharded bare hop of the 32^3x64 `--mesh 2 1` launch in
 `mesh-flagship` (in `mesh-slice` when that phase runs without it),
-counted the same way.  The
-last two lines are
+counted the same way.  The bf16-spinor and batched forms of K1 and K6
+report their launches from bf16-flagship (K1 bf16), bf16-slice (K6
+bf16), block-flagship (K1 batched) and block-slice (K6 batched), as
+fields of their kernel's entry.  The last two lines are
 {"kernels": [...]} and {"ok": true, "device": {...}}.  Without CUDA, or
 outside a checkout of the repository, it exits nonzero and prints no
 result.
@@ -111,6 +135,13 @@ PC_FLAGSHIP_ARGS = [
     "--production"]
 PC_SLICE_AMIN = 0.2
 
+# The block-Lanczos flagship: b = 4 at nKr 24 keeps 16 vectors and adds two
+# block steps a restart, so it needs some 4-5x the restarts of b = 1, in the
+# JAX package as in the port (on the CPU, 4x4x2x4 MdagM: 141 and 116
+# against 23); at the flagship's cap of 30 it stops short of tol (max
+# residual 6.0e-3 on the H100, PERF.md), so this run raises the cap only.
+BLOCK_FLAGSHIP_FLAGS = ["--eig-block-size", "4", "--eig-max-restarts", "200"]
+
 # The MG-deflated loop of scripts/time_mg32.py (2 levels, block 4^4 ->
 # coarse 8^3x16, 12 null vectors, 8 setup iterations, bf16 links, nEv 8,
 # nKr 24, tol 1e-6) with one displacement, so that K3 runs on MG evecs.
@@ -139,7 +170,8 @@ TOL = {"wilson_m": 2e-5, "loop_contract": 2e-5, "covariant_displace": 1e-5,
        "dslash_hop": 2e-5, "dslash_hop_halo": 2e-5,
        # a bf16 output: one bf16 ulp (2^-8 relative) of the largest output
        # either way of a rounding boundary
-       "dslash_hop_bf16": 2.0 ** -7,
+       "dslash_hop_bf16": 2.0 ** -7, "wilson_m_bf16": 2.0 ** -7,
+       "parity_hop_bf16": 2.0 ** -7,
        # K4 vs the eight K5 hops: the same hop code, summed in another order
        "hop_sum": 1e-6,
        # K7 / K4-halo blocks vs K1 / K4 / K6 on the global field: the same
@@ -185,6 +217,13 @@ PC_SLICE_ARGS = [
     "--eig-max-restarts", "100", "--eig-use-poly-acc", "--eig-poly-deg", "12",
     "--eig-amin", str(PC_SLICE_AMIN), "--solve-type", "direct-pc",
     "--production"]
+
+# the Arnoldi of M at the slice (no CLI path; arnoldi_run): unfiltered,
+# smallest modulus, nKr 48
+ARNOLDI_SLICE_ARGS = [
+    "--dims", "8", "8", "8", "16", "--gauge", "weak:0.5", "--gauge-seed", "1",
+    "--kappa", "0.13", "--eig-nev", "4", "--eig-nkr", "48", "--eig-tol", "1e-6",
+    "--eig-max-restarts", "200", "--production"]
 
 # T, Z, Y, X of the kernel-vs-twin phases: the flagships' lattice
 KERNEL_SHAPE = (64, 32, 32, 32)
@@ -516,6 +555,176 @@ def phase_parity(dev, stats):
     stats["parity_hop"]["max_abs_err"] = worst[1]
 
 
+def _time_forms(name, tag, fn, plain, moved, flops, stats, key, extra=""):
+    """Time one kernel form and its twin; say the line; return (ms,
+    bound dict)."""
+    ms = cuda_ms(fn, 20)
+    pms = cuda_ms(plain, 3, 1)
+    b = bound(moved, flops)
+    say(f"{name} {tag}: kernel {ms:.3f} ms (bound {b['bound_ms']:.3f} ms by "
+        f"{b['bound_by']}, {b['bound_ms'] / ms:.2f} of it){extra}  twin "
+        f"{pms:.3f} ms")
+    if key is not None:
+        stats[key] = {"ms": ms, "plain_ms": pms, **b}
+    return ms, b
+
+
+def phase_bf16(dev, stats):
+    """K1 and K6 with bf16 spinors (bf16 in, bf16 out) against their twins
+    at 32^3x64 in every variant, within one bf16 ulp of max |out|; the
+    batched launch (b = 4, f32 and bf16 spinors) against four single
+    launches, exactly; times and bounds of every form."""
+    import torch
+    from mugiq_tpu_torch.kernels.parity import parity_hop, parity_hop_plain
+    from mugiq_tpu_torch.kernels.wilson import (FLOP_PER_SITE, wilson_m,
+                                                wilson_m_plain)
+
+    T, Z, Y, X = KERNEL_SHAPE
+    vol = T * Z * Y * X
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(7)
+    psi = torch.randn((4, T, 24, Z, Y * X), generator=g, device=dev)
+    U = torch.randn((T, 4, 18, Z, Y * X), generator=g, device=dev) * 0.5
+    A = torch.randn((T, 144, Z, Y * X), generator=g, device=dev) * 0.2
+    kappa = 0.12
+    forms = {}
+    worst = 0.0
+    for prec, dt in (("f32", torch.float32), ("bf16", bf)):
+        Ul, Al = U.to(dt), A.to(dt)
+        for clover in (False, True):
+            for dagger in (False, True):
+                A144 = Al if clover else None
+                p1 = psi[0].to(bf)
+                ref = wilson_m_plain(p1, Ul, A144, kappa, dagger, Y)
+                got = wilson_m(p1, Ul, A144, kappa, dagger, Y)
+                err, rel = compare("wilson_m_bf16", got, ref)
+                worst = max(worst, err)
+                say(f"K1 wilson_m bf16 spinors, {prec} links, clover="
+                    f"{int(clover)} dagger={int(dagger)}: rel err {rel:.2e} "
+                    f"(abs {err:.2e}, tol {TOL['wilson_m_bf16']:.1e})")
+                if not clover and not dagger:
+                    out = torch.empty_like(p1)
+                    key = "bf16_spinor" if prec == "f32" else "all_bf16"
+                    _time_forms("K1 wilson_m", f"bf16 spinors, {prec} links",
+                                lambda: wilson_m(p1, Ul, None, kappa, False,
+                                                 Y, out=out),
+                                lambda: wilson_m_plain(p1, Ul, None, kappa,
+                                                       False, Y),
+                                nbytes(p1, Ul, out), FLOP_PER_SITE * vol,
+                                forms, key)
+                del ref, got
+    # the batched launch: one launch for b = 4 equals four single launches
+    for sdt in (torch.float32, bf):
+        p4 = psi.to(sdt)
+        for dagger in (False, True):
+            got = wilson_m(p4, U, None, kappa, dagger, Y)
+            one = torch.stack([wilson_m(p, U, None, kappa, dagger, Y)
+                               for p in p4])
+            torch.cuda.synchronize()
+            diff = float((got.float() - one.float()).abs().max())
+            say(f"K1 wilson_m batch 4 ({str(sdt)[6:]} spinors) "
+                f"dagger={int(dagger)} vs four single launches: max abs diff "
+                f"{diff:.1e} (tol 0)")
+            if diff != 0.0:
+                raise AssertionError("K1's batched launch differs from "
+                                     "single launches")
+            del got, one
+        out4 = torch.empty_like(p4)
+        outs = [torch.empty_like(p) for p in p4]
+        ms1 = cuda_ms(lambda: [wilson_m(p, U, None, kappa, False, Y, out=o)
+                               for p, o in zip(p4, outs)], 20)
+        key = "batch4" if sdt == torch.float32 else "batch4_bf16"
+        _time_forms("K1 wilson_m", f"batch 4 ({str(sdt)[6:]} spinors, one "
+                    f"launch)",
+                    lambda: wilson_m(p4, U, None, kappa, False, Y, out=out4),
+                    lambda: wilson_m_plain(p4, U, None, kappa, False, Y),
+                    nbytes(p4, U, out4), 4 * FLOP_PER_SITE * vol, forms, key,
+                    f"; four single launches {ms1:.3f} ms")
+        forms[key]["singles_ms"] = ms1
+        del p4, out4, outs
+    stats.setdefault("forms", {})["wilson_m"] = forms
+    stats["forms"]["wilson_m"]["bf16_max_abs_err"] = worst
+    del U, A
+    torch.cuda.empty_cache()
+
+    Xh = X // 2
+    sites = T * Z * Y * Xh
+    g = torch.Generator(device=dev).manual_seed(8)
+    pin = torch.randn((4, T, 24, Z, Y * Xh), generator=g, device=dev)
+    pe = torch.randn((4, T, 24, Z, Y * Xh), generator=g, device=dev)
+    Uo = torch.randn((T, 4, 18, Z, Y * Xh), generator=g, device=dev) * 0.5
+    Ui = torch.randn((T, 4, 18, Z, Y * Xh), generator=g, device=dev) * 0.5
+    A = torch.randn((T, 144, Z, Y * Xh), generator=g, device=dev) * 0.2
+    k2 = 0.12 ** 2
+    forms = {}
+    worst = 0.0
+    for prec, dt in (("f32", torch.float32), ("bf16", bf)):
+        Uol, Uil, Al = Uo.to(dt), Ui.to(dt), A.to(dt)
+        p1, e1 = pin[0].to(bf), pe[0].to(bf)
+        variants = (("pass1", {}), ("pass1+A_post", dict(A_post=Al)),
+                    ("pass2", dict(kappa2=k2, psi_out=e1)),
+                    ("pass2+A_comb", dict(kappa2=k2, psi_out=e1, A_comb=Al)))
+        for tag, kw in variants:
+            po = 1 if tag.startswith("pass1") else 0
+            for dagger in (False, True):
+                ref = parity_hop_plain(p1, Uol, Uil, Y, po, dagger, **kw)
+                got = parity_hop(p1, Uol, Uil, Y, po, dagger, **kw)
+                err, rel = compare("parity_hop_bf16", got, ref)
+                worst = max(worst, err)
+                say(f"K6 parity_hop bf16 spinors, {prec} links, {tag} "
+                    f"dagger={int(dagger)}: rel err {rel:.2e} (abs {err:.2e},"
+                    f" tol {TOL['parity_hop_bf16']:.1e})")
+                del ref, got
+            if tag == "pass1":
+                out = torch.empty_like(p1)
+                key = "bf16_spinor" if prec == "f32" else "all_bf16"
+                _time_forms("K6 parity_hop", f"bf16 spinors, {prec} links, "
+                            f"pass1",
+                            lambda: parity_hop(p1, Uol, Uil, Y, 1, False,
+                                               out=out),
+                            lambda: parity_hop_plain(p1, Uol, Uil, Y, 1,
+                                                     False),
+                            nbytes(p1, Uol, Uil, out), FLOP_PER_SITE * sites,
+                            forms, key)
+    for sdt in (torch.float32, bf):
+        p4, e4 = pin.to(sdt), pe.to(sdt)
+        for tag, kw in (("pass1", {}),
+                        ("pass2", dict(kappa2=k2, psi_out=e4))):
+            po = 1 if tag == "pass1" else 0
+            for dagger in (False, True):
+                got = parity_hop(p4, Uo, Ui, Y, po, dagger, **kw)
+                one = torch.stack([
+                    parity_hop(p, Uo, Ui, Y, po, dagger,
+                               **({} if not kw else
+                                  dict(kappa2=k2, psi_out=e4[i])))
+                    for i, p in enumerate(p4)])
+                torch.cuda.synchronize()
+                diff = float((got.float() - one.float()).abs().max())
+                say(f"K6 parity_hop batch 4 ({str(sdt)[6:]} spinors) {tag} "
+                    f"dagger={int(dagger)} vs four single launches: max abs "
+                    f"diff {diff:.1e} (tol 0)")
+                if diff != 0.0:
+                    raise AssertionError("K6's batched launch differs from "
+                                         "single launches")
+                del got, one
+        out4 = torch.empty_like(p4)
+        outs = [torch.empty_like(p) for p in p4]
+        ms1 = cuda_ms(lambda: [parity_hop(p, Uo, Ui, Y, 1, False, out=o)
+                               for p, o in zip(p4, outs)], 20)
+        key = "batch4" if sdt == torch.float32 else "batch4_bf16"
+        _time_forms("K6 parity_hop", f"batch 4 ({str(sdt)[6:]} spinors, "
+                    f"pass1, one launch)",
+                    lambda: parity_hop(p4, Uo, Ui, Y, 1, False, out=out4),
+                    lambda: parity_hop_plain(p4, Uo, Ui, Y, 1, False),
+                    nbytes(p4, Uo, Ui, out4), 4 * FLOP_PER_SITE * sites,
+                    forms, key, f"; four single launches {ms1:.3f} ms")
+        forms[key]["singles_ms"] = ms1
+        del p4, e4, out4, outs
+    stats["forms"]["parity_hop"] = forms
+    stats["forms"]["parity_hop"]["bf16_max_abs_err"] = worst
+    torch.cuda.empty_cache()
+
+
 def phase_identity(dev):
     """K6 tied to K1 at 32^3x64: two independent codes, one operator."""
     import torch
@@ -693,6 +902,49 @@ def phase_flagship(counters):
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"flagship run")
     return launches, res
+
+
+def phase_flagship_variant(name, flags, counters, flagship, ev_tol,
+                           max_resid):
+    """The loop flagship's CLI invocation with extra flags, on the
+    script's flagship gauge: its eigenvalues within ev_tol relative of the
+    f32 flagship's, max refined residual under max_resid, data_mom finite
+    of the flagship's shape; returns (result, solution s, launches)."""
+    import numpy as np
+    from mugiq_tpu_torch.cli import loop as cli_loop
+
+    tmp = tempfile.mkdtemp(prefix="mugiq_smoke_",
+                           dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        mom = os.path.join(tmp, "moms.txt")
+        with open(mom, "w") as f:
+            f.write(FLAGSHIP_MOMENTA)
+        argv = (with_flagship_gauge(FLAGSHIP_ARGS)
+                + ["--momenta-filename", mom] + flags)
+        say(f"{name} CLI: python -m mugiq_tpu_torch.cli.loop "
+            + " ".join(argv))
+        res, _, phases, launches = run_main_path(name, cli_loop.run, argv,
+                                                 counters)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for i, (lam, r) in enumerate(zip(res.evals, res.resids)):
+        say(f"{name}: eval[{i}] {lam:+.10e} resid {r:.3e}")
+    ev = float(np.max(np.abs(res.evals - flagship.evals) / flagship.evals))
+    say(f"{name}: solution {phases.get('solution', float('nan')):.3f} s, "
+        f"converged={res.converged} restarts={res.n_restarts} (f32 flagship "
+        f"{flagship.n_restarts}), evals rel {ev:.2e} of the f32 flagship's "
+        f"(tol {ev_tol:.0e}), max resid {max(res.resids):.3e} (tol "
+        f"{max_resid:.0e}), K1 launches {launches['wilson_m']}")
+    if not (np.isfinite(res.evals).all() and ev <= ev_tol
+            and max(res.resids) < max_resid):
+        raise AssertionError(f"{name}: eigenpairs outside their limits")
+    if res.data_mom.shape != (3, 2, 16, 64) or not np.isfinite(
+            res.data_mom).all():
+        raise AssertionError(f"{name} data_mom: shape {res.data_mom.shape} "
+                             f"or not finite")
+    if launches["wilson_m"] <= 0:
+        raise AssertionError(f"{name}: K1 was not launched")
+    return res, phases.get("solution"), launches
 
 
 def phase_pc_flagship(counters):
@@ -935,6 +1187,226 @@ def phase_hop(dev, stats, counters, launches):
             f"card {card}")
         del a, b_, Ul
         torch.cuda.empty_cache()
+
+
+def match_rel(a, b):
+    """Max over a's eigenvalues of the relative distance to the nearest of
+    b's: an order-free comparison (complex conjugate pairs of M have equal
+    modulus and sort by rounding noise)."""
+    import numpy as np
+    a, b = np.asarray(a), np.asarray(b)
+    return float(max(np.min(np.abs(b - x)) / np.abs(x) for x in a))
+
+
+def slice_setup():
+    """The 8^3x16 slice's gauge and parameters (weak:0.5, seed 1, kappa
+    0.13), as phase_slice and phase_pc_slice build them."""
+    from mugiq_tpu_torch.io.gauge_io import load_gauge_np
+    from mugiq_tpu_torch.lattice import LatticeGeometry
+    from mugiq_tpu_torch.params import GaugeParam, InvertParam
+
+    geom = LatticeGeometry((8, 8, 8, 16))
+    return (load_gauge_np("weak:0.5", geom, seed=1),
+            GaugeParam(dims=geom.dims), InvertParam(kappa=0.13))
+
+
+def solve_counted(name, d, counters, **kw):
+    """compute_evecs_production on the slice through device d, every launch
+    counter zeroed just before and read just after; returns (res, evals,
+    resids, launches)."""
+    from mugiq_tpu_torch.production import compute_evecs_production
+
+    U, gp, ip = slice_setup()
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res, evals, _, resids = compute_evecs_production(U, gp, ip, device=d,
+                                                     **kw)
+    launches = {k.__name__: k.launches for k in counters}
+    say(f"{name} on {d}: {time.perf_counter() - t0:.2f} s, converged="
+        f"{res.converged} restarts={res.n_restarts} max resid "
+        f"{max(resids):.2e}")
+    return res, evals, resids, launches
+
+
+def phase_bf16_restart(dev, stats):
+    """The JAX package's TPU restart bench through the port
+    (bench.py:225-261, _bench_eig32_restart): 32^3x64, random-normal links,
+    MdagM, nKr 24, nEv 8, tol 1e-30; warm seconds per restart from the
+    difference of 6 and 2 restarts.  Once with bf16 links and a bf16 basis
+    (the bench's configuration), once with f32 links and an f32 basis."""
+    import numpy as np
+    import torch
+    from mugiq_tpu_torch.dirac_kernel import WilsonDiracKernel
+    from mugiq_tpu_torch.lanczos import lanczos_hermitian_realpair
+
+    T, Z, Y, X = KERNEL_SHAPE
+    rng = np.random.default_rng(0)
+    U = torch.from_numpy(rng.standard_normal((T, 4, 18, Z, Y * X)).astype(
+        np.float32)).to(dev)
+    v0 = torch.from_numpy(rng.standard_normal((T, 24, Z, Y * X)).astype(
+        np.float32)).to(dev)
+    card = card_line()
+    out = {}
+    for tag, prec, bdt in (("bf16 links + bf16 basis", "bf16", torch.bfloat16),
+                           ("f32 links + f32 basis", "f32", None)):
+        op = WilsonDiracKernel(U, 0.12, Y, precision=prec)
+
+        def run(r):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lanczos_hermitian_realpair(
+                op.MdagM, v0, n_ev=8, n_kr=24, re_im_axis=1, tol=1e-30,
+                max_restarts=r, which="SR", check_interval=100,
+                basis_dtype=bdt)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        run(2)                                  # warm
+        t2, t6 = run(2), run(6)
+        per = (t6 - t2) / 4
+        out[prec] = per
+        say(f"bf16-restart 32^3x64 {tag}: 2 restarts {t2:.3f} s, 6 restarts "
+            f"{t6:.3f} s, warm {per:.4f} s/restart ({card})")
+        del op
+        torch.cuda.empty_cache()
+    stats["restart_s"] = {"bf16": out["bf16"], "f32": out["f32"],
+                          "card": card}
+
+
+def phase_bf16_slice(dev, counters, launches):
+    """The bf16-basis eigensolve at 8^3x16 through the kernels (card), full
+    operator (K1, also through the twins on the CPU) and packed pc operator
+    (K6): eigenvalues within 1e-2 relative of the twins' and within 3e-2
+    of the f32 solve on the card, residuals < 0.1; fills `launches` with
+    the bf16 launches."""
+    import numpy as np
+    from mugiq_tpu_torch.params import EigParam
+
+    for eo, amin, kern in ((False, 0.15, "wilson_m"),
+                           (True, PC_SLICE_AMIN, "parity_hop")):
+        tag = "pc" if eo else "full"
+        # the twins' CPU time: the full operator only (K6's bf16 form is
+        # held to its twin in the bf16 phase)
+        devices = (("kernels", dev),) if eo else (("kernels", dev),
+                                                  ("twins", "cpu"))
+        ref = solve_counted(f"bf16 slice {tag} f32 basis", dev, counters,
+                            eig=EigParam(n_ev=4, n_kr=24, tol=1e-6,
+                                         max_restarts=100, use_poly_acc=True,
+                                         poly_deg=12, a_min=amin),
+                            even_odd=eo)[1]
+        ep = EigParam(n_ev=4, n_kr=24, tol=1e-3, max_restarts=40,
+                      use_poly_acc=True, poly_deg=12, a_min=amin)
+        got = {}
+        for name, d in devices:
+            _, got[name], resids, lk = solve_counted(
+                f"bf16 slice {tag} bf16 basis via {name}", d, counters,
+                eig=ep, even_odd=eo, basis_precision="bf16")
+            if max(resids) >= 0.1:
+                raise AssertionError(f"bf16 slice {tag} via {name}: max "
+                                     f"residual {max(resids):.3e} >= 0.1")
+            if name == "kernels":
+                launches[kern] = lk[kern]
+                if lk[kern] <= 0:
+                    raise AssertionError(f"bf16 slice {tag}: {kern} was "
+                                         f"not launched")
+        kt = (float(np.max(np.abs(got["kernels"] - got["twins"])
+                           / got["twins"])) if "twins" in got else 0.0)
+        kf = float(np.max(np.abs(got["kernels"] - ref) / ref))
+        vs = f"{kt:.2e}" if "twins" in got else "not run"
+        say(f"bf16 slice {tag}: kernels vs twins evals rel {vs} (tol 1e-2), "
+            f"vs the f32 basis {kf:.2e} (tol 3e-2); {kern} launches "
+            f"{launches[kern]}")
+        if not (kt <= 1e-2 and kf <= 3e-2):
+            raise AssertionError(f"bf16 slice {tag} disagrees")
+
+
+def phase_block_slice(dev, counters):
+    """Block Lanczos (b = 4) of the pc eigensolve at 8^3x16 through K6's
+    batched launch (card) against the twins (CPU) and the b = 1 solve:
+    eigenvalues 1e-5; returns K6's launches."""
+    import numpy as np
+    from mugiq_tpu_torch.params import EigParam
+
+    out = {}
+    for name, b, d in (("b=4 kernels", 4, dev), ("b=4 twins", 4, "cpu"),
+                       ("b=1 kernels", 1, dev)):
+        res, out[name], _, lk = solve_counted(
+            f"block slice pc {name}", d, counters, even_odd=True,
+            eig=EigParam(n_ev=4, n_kr=24, tol=1e-6, max_restarts=100,
+                         use_poly_acc=True, poly_deg=12,
+                         a_min=PC_SLICE_AMIN, block_size=b))
+        if not res.converged:
+            raise AssertionError(f"block slice {name} did not converge")
+        if name == "b=4 kernels":
+            k6 = lk["parity_hop"]
+            if k6 <= 0:
+                raise AssertionError("block slice: K6 was not launched")
+    a = out["b=4 kernels"]
+    kt = float(np.max(np.abs(a - out["b=4 twins"]) / out["b=4 twins"]))
+    k1 = float(np.max(np.abs(a - out["b=1 kernels"]) / out["b=1 kernels"]))
+    say(f"block slice pc: kernels vs twins evals rel {kt:.2e} (tol 1e-5), "
+        f"vs b=1 {k1:.2e} (tol 1e-5); K6 launches {k6} (batched)")
+    if not (kt <= 1e-5 and k1 <= 1e-5):
+        raise AssertionError("block slice disagrees")
+    return k6
+
+
+def arnoldi_run(argv):
+    """The Arnoldi eigensolve of EigOperator.M, which no CLI reaches: the
+    eigensolve CLI's flags, parsed, solved by
+    production.compute_evecs_production for the smallest modulus,
+    unfiltered, on the mesh the flags ask for; returns what the CLI's
+    run() returns."""
+    from mugiq_tpu_torch.cli import eigensolve as cli_eig
+    from mugiq_tpu_torch.cli.common import build_mesh, build_params
+    from mugiq_tpu_torch.io.gauge_io import load_gauge_np
+    from mugiq_tpu_torch.lattice import LatticeGeometry
+    from mugiq_tpu_torch.params import EigOperator, Spectrum
+    from mugiq_tpu_torch.production import compute_evecs_production
+
+    args = cli_eig.parse_args(argv)
+    gp, ip, ep = build_params(args)
+    ep.operator, ep.spectrum, ep.use_poly_acc = (EigOperator.M, Spectrum.SM,
+                                                 False)
+    mesh, dev = build_mesh(args, gp.dims)
+    U = load_gauge_np(args.gauge, LatticeGeometry(gp.dims),
+                      seed=args.gauge_seed)
+    return compute_evecs_production(U, gp, ip, ep, seed=ep.seed, mesh=mesh,
+                                    device=dev)
+
+
+def phase_arnoldi_slice(dev, counters):
+    """compute_evecs_production with EigOperator.M and Mdag at 8^3x16 (the
+    Krylov-Schur Arnoldi, smallest modulus) through the kernels (card)
+    against the twins (CPU): eigenvalues 1e-5 relative; M^dag's the
+    conjugates of M's."""
+    import numpy as np
+    from mugiq_tpu_torch.params import EigOperator, EigParam, Spectrum
+
+    got = {}
+    for op in ("M", "Mdag"):
+        ep = EigParam(n_ev=4, n_kr=48, tol=1e-6, max_restarts=200,
+                      operator=EigOperator[op], spectrum=Spectrum.SM)
+        for name, d in (("kernels", dev), ("twins", "cpu")):
+            res, got[(op, name)], resids, lk = solve_counted(
+                f"arnoldi slice {op} via {name}", d, counters, eig=ep)
+            if not res.converged:
+                raise AssertionError(f"arnoldi slice {op} via {name} did "
+                                     f"not converge")
+            say(f"arnoldi slice {op} via {name}: evals "
+                f"{np.round(got[(op, name)], 6).tolist()}, resids "
+                f"{[f'{r:.2e}' for r in resids]}, K1 launches "
+                f"{lk['wilson_m']}")
+        kt = match_rel(got[(op, "kernels")], got[(op, "twins")])
+        say(f"arnoldi slice {op}: kernels vs twins evals rel {kt:.2e} (tol "
+            f"1e-5)")
+        if not kt <= 1e-5:
+            raise AssertionError(f"arnoldi slice {op} disagrees")
+    cj = match_rel(got[("Mdag", "kernels")], np.conj(got[("M", "kernels")]))
+    say(f"arnoldi slice: Mdag evals vs conj(M evals) rel {cj:.2e} (tol 1e-5)")
+    if not cj <= 1e-5:
+        raise AssertionError("M^dag's eigenvalues are not M's conjugates")
 
 
 def phase_mg_slice(dev):
@@ -1319,9 +1791,10 @@ def mesh_worker(out, spec):
             continue
         loop = job["mode"] == "loop"
         halo.reset_totals()
-        got, wall, phases, launches = run_main_path(
-            job["name"], cli_loop.run if loop else cli_eig.run, job["argv"],
-            counters)
+        run = {"loop": cli_loop.run, "eig": cli_eig.run,
+               "arnoldi": arnoldi_run}[job["mode"]]
+        got, wall, phases, launches = run_main_path(job["name"], run,
+                                                    job["argv"], counters)
         if loop:
             res, data_mom = got, got.data_mom
             evals, sigma, resids = res.evals, res.sigma, res.resids
@@ -1464,7 +1937,7 @@ def check_ranks(name, ranks, ref, mom_tol, launched, not_launched):
     import numpy as np
     evals, data_mom, restarts = ref
     for r, d in enumerate(ranks):
-        ev = float(np.max(np.abs(d["evals"] - evals) / np.abs(evals)))
+        ev = match_rel(d["evals"], evals)
         msg = (f"{name} rank {r}: converged={bool(d['converged'])} restarts "
                f"{int(d['n_restarts'])} (single device {restarts}), evals rel "
                f"{ev:.2e} (tol 1e-5), max resid {float(d['resids'].max()):.2e}")
@@ -1519,13 +1992,28 @@ def phase_mesh_slice(counters):
         check_ranks("mesh slice loop 2 2 2", got["loop"], ref_loop, 1e-3,
                     ("wilson_m_halo", "loop_contract", "covariant_displace"),
                     ("wilson_m",))
+        block_args = PC_SLICE_ARGS + ["--eig-block-size", "4"]
+        (r, ev, _, _), _, _, _ = run_main_path(
+            "mesh block slice, one device", cli_eig.run, block_args,
+            counters)
+        ref_block = (ev, None, r.n_restarts)
+        (r, ev, _, _), _, _, _ = run_main_path(
+            "mesh arnoldi slice, one device", arnoldi_run, ARNOLDI_SLICE_ARGS,
+            counters)
+        ref_arnoldi = (ev, None, r.n_restarts)
         got = run_mesh("mesh slice pc --mesh 2 1", "2 1",
                        [("hop", "hop", loop_args),
-                        ("pc", "eig", PC_SLICE_ARGS)], "gloo")
+                        ("pc", "eig", PC_SLICE_ARGS),
+                        ("block", "eig", block_args),
+                        ("arnoldi", "arnoldi", ARNOLDI_SLICE_ARGS)], "gloo")
         hop_launches = check_sharded_hop("mesh slice bare hop 2 1",
                                          got["hop"])
         check_ranks("mesh slice pc 2 1", got["pc"], ref_pc, 1e-3,
                     ("parity_hop_halo",), ("parity_hop", "wilson_m"))
+        check_ranks("mesh slice block (b=4) pc 2 1", got["block"], ref_block,
+                    1e-3, ("parity_hop_halo",), ("parity_hop", "wilson_m"))
+        check_ranks("mesh slice arnoldi M 2 1", got["arnoldi"], ref_arnoldi,
+                    1e-3, ("wilson_m_halo",), ("wilson_m",))
         return (got["pc"][0]["launches"]["parity_hop_halo"], hop_launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1605,9 +2093,11 @@ def kernel_counters():
             dslash_hop_halo]
 
 
-PHASES = ("build", "kernels", "parity", "identity", "slice", "pc-slice",
-          "flagship", "pc-flagship", "hopdir", "mg-slice", "mg-flagship",
-          "hop", "halo", "mesh-slice", "mesh-flagship")
+PHASES = ("build", "kernels", "parity", "bf16", "identity", "slice",
+          "pc-slice", "bf16-restart", "bf16-slice", "block-slice",
+          "arnoldi-slice", "flagship", "bf16-flagship", "block-flagship",
+          "pc-flagship", "hopdir", "mg-slice", "mg-flagship", "hop", "halo",
+          "mesh-slice", "mesh-flagship")
 
 
 def main(argv=None):
@@ -1649,9 +2139,17 @@ def main(argv=None):
     say(f"chip_smoke: phases {','.join(phases)} passed in "
         f"{time.perf_counter() - t0:.1f} s")
     say(card_line())
+    forms = stats.get("forms", {})
+    for form, got in stats.get("form_launches", {}).items():
+        for k, n in got.items():
+            forms.setdefault(k, {})[f"{form}_launches"] = n
+    if "restart_s" in stats or stats.get("variant_s"):
+        say(json.dumps({"restart_s_per_restart": stats.get("restart_s"),
+                        "variant_solution_s": stats.get("variant_s")}))
     say(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE[k],
-         "replaces": TPU_KERNEL[k], "launches": launches[k], **stats[k]}
+         "replaces": TPU_KERNEL[k], "launches": launches[k], **stats[k],
+         **({"forms": forms[k]} if k in forms else {})}
         for k in TPU_KERNEL if k in stats and k in launches]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1662,6 +2160,10 @@ def main(argv=None):
 def run_phases(phases, dev, counters, stats, launches):
     import torch
     flagship = None
+    # main-path launches of K1's and K6's bf16-spinor and batched forms
+    form_launches = stats.setdefault("form_launches",
+                                     {"bf16": {}, "batch4": {}})
+    stats.setdefault("variant_s", {})
     for phase in phases:
         tp = time.perf_counter()
         if phase == "build":
@@ -1675,18 +2177,42 @@ def run_phases(phases, dev, counters, stats, launches):
              "halo": phase_halo}[phase](dev, stats)
         elif phase == "hop":
             phase_hop(dev, stats, counters, launches)
+        elif phase == "bf16":
+            phase_bf16(dev, stats)
         elif phase == "identity":
             phase_identity(dev)
         elif phase == "slice":
             phase_slice(dev)
         elif phase == "pc-slice":
             phase_pc_slice(dev)
-        elif phase in ("flagship", "mesh-flagship"):
+        elif phase == "bf16-restart":
+            phase_bf16_restart(dev, stats)
+        elif phase == "bf16-slice":
+            phase_bf16_slice(dev, counters, form_launches["bf16"])
+        elif phase == "block-slice":
+            form_launches["batch4"]["parity_hop"] = phase_block_slice(
+                dev, counters)
+        elif phase == "arnoldi-slice":
+            phase_arnoldi_slice(dev, counters)
+        elif phase in ("flagship", "mesh-flagship", "bf16-flagship",
+                       "block-flagship"):
             if flagship is None:
                 got, flagship = phase_flagship(counters)
                 for k in ("wilson_m", "loop_contract", "covariant_displace"):
                     launches[k] = got[k]
-            if phase == "mesh-flagship":
+            if phase == "bf16-flagship":
+                _, t, lk = phase_flagship_variant(
+                    "bf16 flagship", ["--basis-precision", "bf16"], counters,
+                    flagship, 3e-2, 0.1)
+                form_launches["bf16"]["wilson_m"] = lk["wilson_m"]
+                stats["variant_s"]["bf16"] = t
+            elif phase == "block-flagship":
+                _, t, lk = phase_flagship_variant(
+                    "block flagship", BLOCK_FLAGSHIP_FLAGS, counters,
+                    flagship, 1e-4, MAX_RESIDUAL)
+                form_launches["batch4"]["wilson_m"] = lk["wilson_m"]
+                stats["variant_s"]["block4"] = t
+            elif phase == "mesh-flagship":
                 (launches["wilson_m_halo"],
                  launches["dslash_hop_halo"]) = phase_mesh_flagship(flagship)
         elif phase == "pc-flagship":

@@ -4,7 +4,9 @@ The single-device production loop (eigensolve -> loop contraction ->
 momentum projection), its MG-deflated form (the Galerkin coarse operator
 of a multigrid hierarchy eigensolved and its eigenvectors prolongated,
 ``mg/``) and the eigensolve entry point, with the full or the packed
-even-odd preconditioned operator, on a CUDA device, and the loop and
+even-odd preconditioned operator, thick-restart or block Lanczos with an
+f32 or bf16 Krylov basis, or the Krylov-Schur Arnoldi of M / M^dag, on a
+CUDA device, and the loop and
 eigensolve sharded over a (t, z[, y]) grid of ranks, one
 torch.distributed process each (``parallel/``); the stencil kernels
 are written by hand in CUDA C++ (``kernels/csrc``) and built with

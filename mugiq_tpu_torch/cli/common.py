@@ -1,6 +1,8 @@
 """Shared CLI flags (port of the flags mugiq_tpu.cli.common gives the
 production loop and the eigensolve, with the multigrid and parallel
-flags), plus --device and --dist-backend."""
+flags), plus --device and --dist-backend.  Both CLIs define every flag
+of their JAX counterparts with the same choices and defaults; flags that
+drive JAX-only machinery are accepted and logged (log_jax_only)."""
 
 import argparse
 
@@ -18,6 +20,14 @@ def add_lattice_args(p: argparse.ArgumentParser):
     g.add_argument("--gauge-seed", type=int, default=0)
     g.add_argument("--periodic-t", action="store_true",
                    help="periodic (instead of antiperiodic) fermion time BC")
+    g.add_argument("--prec", choices=["single", "double"], default="single",
+                   help="working precision (double not ported)")
+    g.add_argument("--platform", default=None,
+                   help="the JAX platform override: accepted, no effect "
+                        "(the port runs on --device)")
+    g.add_argument("--compile-cache", choices=["yes", "no"], default="yes",
+                   help="the JAX executable cache: accepted, no effect "
+                        "(PyTorch runs eagerly)")
     g.add_argument("--device", default="cuda",
                    help="torch device (cuda, cuda:N or cpu); cuda without "
                         "CUDA is an error")
@@ -56,8 +66,8 @@ def add_eig_args(p: argparse.ArgumentParser):
     g.add_argument("--eig-seed", type=int, default=1234,
                    help="seed of the eigensolver's start vector")
     g.add_argument("--eig-block-size", type=int, default=1,
-                   help="block thick-restart Lanczos block size (>1 is not "
-                        "ported yet)")
+                   help="block thick-restart Lanczos block size (>1: one "
+                        "batched operator launch per block step)")
     g.add_argument("--eig-vec-outfile", default="",
                    help="save eigenvectors/values (HDF5)")
     g.add_argument("--eig-vec-infile", default="",
@@ -81,6 +91,51 @@ def add_parallel_args(p: argparse.ArgumentParser):
     g.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
                    help="default: nccl for cuda, gloo for cpu; ranks that "
                         "share a card need gloo")
+
+
+def add_production_args(g):
+    """The production flags both JAX CLIs define (--production, --autotune,
+    --link-precision, --basis-precision)."""
+    g.add_argument("--production", action="store_true",
+                   help="accepted for compatibility: the port always runs "
+                        "the production path")
+    g.add_argument("--autotune", action="store_true",
+                   help="the JAX variant autotuner: accepted, no effect "
+                        "(one kernel per operator, nothing to tune)")
+    g.add_argument("--link-precision", choices=("f32", "bf16"),
+                   default="f32",
+                   help="link/clover storage precision (arithmetic f32)")
+    g.add_argument("--basis-precision", choices=("f32", "bf16"),
+                   default="f32",
+                   help="Krylov-basis storage precision (bf16: the stored "
+                        "vectors feed the operator as they are; arithmetic "
+                        "f32; deflation-grade residuals)")
+
+
+#: flags that drive JAX-only machinery, with their defaults
+_JAX_ONLY = (("platform", None), ("compile_cache", "yes"),
+             ("autotune", False), ("loop_calc_type", "opt"))
+
+
+def log_jax_only(args) -> None:
+    """Log, once, the JAX-only flags given at other than their default
+    (the platform override, the executable cache, the variant autotuner,
+    the loop's calc type): the port accepts them and has nothing for them
+    to do."""
+    from ..utils import log
+
+    given = [f"--{k.replace('_', '-')} {getattr(args, k)}"
+             for k, d in _JAX_ONLY if getattr(args, k, d) != d]
+    if given:
+        log(f"{', '.join(given)}: JAX-only machinery, accepted with no "
+            f"effect here")
+
+
+def check_prec(args) -> None:
+    from ..utils import not_ported
+
+    if args.prec == "double":
+        not_ported("--prec double", "item 9")
 
 
 def build_mesh(args, dims):

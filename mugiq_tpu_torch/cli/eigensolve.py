@@ -16,10 +16,17 @@ halo-extended kernels (K7a, K7b):
         -m mugiq_tpu_torch.cli.eigensolve ... --solve-type direct-pc \
         --mesh 2 1
 
-The
-port has only the production path; --production is accepted so that the
-JAX CLI's production invocations run unchanged.  Options of the JAX CLI
-that are not ported raise NotImplementedError naming their ROADMAP item.
+--basis-precision bf16 stores the Krylov basis in bf16 (one device);
+--eig-block-size B > 1 runs block Lanczos with one batched launch per
+block step.
+
+The parser defines every flag of the JAX CLI with its choices and
+default, so each of its production invocations parses here.  The port
+has only the production path (--production is accepted); --platform,
+--compile-cache and --autotune drive JAX-only machinery and are logged
+with no other effect; the MG group parses, and --mugiq-use-mg yes (the
+JAX API's MG eigensolve), --prec double and --basis-precision bf16 with
+--mesh raise NotImplementedError naming their ROADMAP item.
 """
 
 import argparse
@@ -29,13 +36,10 @@ import time
 import numpy as np
 
 from .common import (add_dirac_args, add_eig_args, add_lattice_args,
-                     add_parallel_args, build_mesh, build_params,
+                     add_mg_args, add_parallel_args, add_production_args,
+                     build_mesh, build_params, check_prec, log_jax_only,
                      quiet_unless_primary)
-
-
-def _not_ported(flag: str, item: str):
-    raise NotImplementedError(f"{flag} is not ported to mugiq_tpu_torch yet "
-                              f"(ROADMAP queue 1, {item})")
+from ..utils import not_ported
 
 
 def parse_args(argv=None):
@@ -46,23 +50,8 @@ def parse_args(argv=None):
     add_lattice_args(p)
     add_dirac_args(p)
     add_eig_args(p)
-    g = p.add_argument_group("production")
-    g.add_argument("--production", action="store_true",
-                   help="accepted for compatibility with mugiq-eigensolve: "
-                        "the port always runs the production path")
-    g.add_argument("--autotune", action="store_true",
-                   help="accepted for compatibility: the port has one "
-                        "kernel per operator and nothing to tune")
-    g.add_argument("--link-precision", choices=("f32", "bf16"),
-                   default="f32",
-                   help="link/clover storage precision (arithmetic f32)")
-    g.add_argument("--basis-precision", choices=("f32", "bf16"),
-                   default="f32",
-                   help="Krylov-basis storage precision (bf16 not ported)")
-    g.add_argument("--prec", choices=["single", "double"], default="single",
-                   help="working precision (double not ported)")
-    g.add_argument("--mugiq-use-mg", choices=["yes", "no"], default="no",
-                   help="eigensolve the MG coarse operator (not ported)")
+    add_mg_args(p)
+    add_production_args(p.add_argument_group("production"))
     add_parallel_args(p)
     return p.parse_args(argv)
 
@@ -73,12 +62,13 @@ def run(argv=None):
     --eig-vec-infile it loads the checkpoint instead of solving and the
     first item is None."""
     args = parse_args(argv)
-    if args.basis_precision == "bf16":
-        _not_ported("--basis-precision bf16", "item 3")
     if args.mugiq_use_mg == "yes":
-        _not_ported("--mugiq-use-mg yes", "item 11")
-    if args.prec == "double":
-        _not_ported("--prec double", "item 9")
+        not_ported("--mugiq-use-mg yes (the MG eigensolve of the JAX API)",
+                   "item 9")
+    check_prec(args)
+    if args.basis_precision == "bf16" and args.mesh is not None:
+        not_ported("--basis-precision bf16 with --mesh (bf16 halo-extended "
+                   "spinors in K7a and K7b)", "item 7")
 
     from ..io.gauge_io import load_evecs, load_gauge_np, plaquette, save_evecs
     from ..lattice import LatticeGeometry
@@ -103,13 +93,12 @@ def run(argv=None):
             log(f"Mugiq: Eval[{i:04d}] = {lam.real:+.16e} {lam.imag:+.16e}")
         return None, evals, sigma, resids
 
-    if args.autotune:
-        log("--autotune: the port has one kernel per operator; nothing to "
-            "tune")
+    log_jax_only(args)
     t0 = time.time()
     res, evals, sigma, resids = compute_evecs_production(
         U, gp, ip, ep, seed=ep.seed, precision=args.link_precision,
-        even_odd=args.solve_type == "direct-pc", mesh=mesh, device=device)
+        even_odd=args.solve_type == "direct-pc",
+        basis_precision=args.basis_precision, mesh=mesh, device=device)
     if not res.converged:
         log("WARNING: production eigensolve did NOT converge to tolerance")
     for i in range(len(evals)):

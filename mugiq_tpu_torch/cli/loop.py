@@ -22,8 +22,19 @@ a card per rank; gloo on the CPU or when ranks share a card):
     python -m torch.distributed.run --standalone --nproc-per-node 2 \
         -m mugiq_tpu_torch.cli.loop --dims 8 8 8 16 ... --mesh 2 1
 
-The port has only the production path; --production is accepted so that
-the JAX CLI's production invocations run unchanged.
+--basis-precision bf16 stores the Krylov basis in bf16 (one device);
+--eig-block-size B > 1 runs block Lanczos.
+
+The parser defines every flag of the JAX CLI with its choices and
+default, so each of its production invocations parses here.  The port
+has only the production path (--production is accepted); --platform,
+--compile-cache, --autotune and --loop-calc-type drive JAX-only machinery
+(the production path never reads the calc type) and are logged with no
+other effect.  Values that need unported work raise NotImplementedError
+naming their ROADMAP item: --serve (item 13), --loop-write-pos-space yes
+(item 4), --loop-coarse-ulocal yes (item 12), --prec double (item 9),
+--basis-precision bf16 with --mesh (item 7), --mugiq-use-mg yes with
+--mesh (item 15).
 """
 
 import argparse
@@ -31,9 +42,11 @@ import sys
 import time
 
 from .common import (add_dirac_args, add_eig_args, add_lattice_args,
-                     add_mg_args, add_parallel_args, build_mesh,
-                     build_mg_param, build_params, quiet_unless_primary,
+                     add_mg_args, add_parallel_args, add_production_args,
+                     build_mesh, build_mg_param, build_params, check_prec,
+                     log_jax_only, quiet_unless_primary,
                      read_momenta_file)
+from ..utils import not_ported
 
 
 def parse_args(argv=None):
@@ -51,24 +64,28 @@ def parse_args(argv=None):
                    help="file with 'px py pz' per line; default p=0 only")
     g.add_argument("--loop-ft-sign", choices=["plus", "minus"],
                    default="minus")
+    g.add_argument("--loop-calc-type", choices=["blas", "opt", "basic"],
+                   default="opt",
+                   help="the JAX validation path's contraction form: "
+                        "accepted, no effect (the production path runs K2)")
     g.add_argument("--loop-write-mom-space", choices=["yes", "no"],
                    default="no")
+    g.add_argument("--loop-write-pos-space", choices=["yes", "no"],
+                   default="no", help="position-space HDF5 (not ported)")
     g.add_argument("--loop-do-momproj", choices=["yes", "no"], default="yes")
     g.add_argument("--loop-do-nonlocal", choices=["yes", "no"], default="no")
     g.add_argument("--displace-entry-string", default="",
                    help="e.g. '+z:1,8;-x:3'")
     g.add_argument("--loop-mom-space-filename", default="")
+    g.add_argument("--loop-pos-space-filename", default="")
     g.add_argument("--loop-gauge-filename", default="",
                    help="separate (smeared) gauge for displacements")
-    g.add_argument("--production", action="store_true",
-                   help="accepted for compatibility with mugiq-loop: the "
-                        "port always runs the production path")
-    g.add_argument("--link-precision", choices=("f32", "bf16"),
-                   default="f32",
-                   help="link/clover storage precision (arithmetic f32)")
     g.add_argument("--loop-coarse-ulocal", choices=["yes", "no"],
                    default="no",
                    help="the coarse-space ultra-local loop (not ported)")
+    add_production_args(g)
+    g.add_argument("--serve", default="", metavar="DIR",
+                   help="the resident server mode (not ported)")
     args = p.parse_args(argv)
     if args.loop_do_nonlocal == "yes" and not args.displace_entry_string:
         p.error("--loop-do-nonlocal yes requires --displace-entry-string")
@@ -76,6 +93,10 @@ def parse_args(argv=None):
             and not args.loop_mom_space_filename):
         p.error("--loop-write-mom-space yes requires "
                 "--loop-mom-space-filename")
+    if (args.loop_write_pos_space == "yes"
+            and not args.loop_pos_space_filename):
+        p.error("--loop-write-pos-space yes requires "
+                "--loop-pos-space-filename")
     return args
 
 
@@ -83,10 +104,14 @@ def run(argv=None):
     """Parse, run the production loop, log as the JAX CLI does; returns the
     ProductionResult."""
     args = parse_args(argv)
+    if args.serve:
+        not_ported("--serve (the resident production server)", "item 13")
+    if args.loop_write_pos_space == "yes":
+        not_ported("--loop-write-pos-space yes (the position-space HDF5 "
+                   "writer)", "item 4")
     if args.loop_coarse_ulocal == "yes":
-        raise NotImplementedError("--loop-coarse-ulocal is not ported to "
-                                  "mugiq_tpu_torch yet (ROADMAP queue 1, "
-                                  "item 12)")
+        not_ported("--loop-coarse-ulocal", "item 12")
+    check_prec(args)
     from ..io.gauge_io import load_gauge_np, plaquette
     from ..lattice import LatticeGeometry
     from ..params import FTSign, LoopParam
@@ -96,9 +121,11 @@ def run(argv=None):
     gp, ip, ep = build_params(args)
     use_mg = args.mugiq_use_mg == "yes"
     if use_mg and args.mesh is not None:
-        raise NotImplementedError("--mugiq-use-mg yes with --mesh is not "
-                                  "ported to mugiq_tpu_torch yet (ROADMAP "
-                                  "queue 1, item 15)")
+        not_ported("--mugiq-use-mg yes with --mesh", "item 15")
+    if (args.basis_precision == "bf16" and args.mesh is not None
+            and not use_mg):
+        not_ported("--basis-precision bf16 with --mesh (bf16 halo-extended "
+                   "spinors in K7a and K7b)", "item 7")
     mesh, device = build_mesh(args, gp.dims)
     quiet_unless_primary(mesh)
     mg = build_mg_param(args) if use_mg else None
@@ -123,6 +150,7 @@ def run(argv=None):
     tot, sp, tm = plaquette(U, device)
     log(f"Computed plaquette is {tot:.8f} "
         f"(spatial = {sp:.8f}, temporal = {tm:.8f})")
+    log_jax_only(args)
     if args.solve_type == "direct-pc":
         log("--solve-type direct-pc applies to the eigensolve CLI; the loop "
             "eigensolves the full operator, as mugiq-loop does")
@@ -131,6 +159,7 @@ def run(argv=None):
     res = compute_loop_production(U, gp, ip, ep, lp, U_loop_np=U_loop,
                                   use_mg=use_mg, mg=mg, mesh=mesh,
                                   precision=args.link_precision,
+                                  basis_precision=args.basis_precision,
                                   seed=ep.seed, device=device)
     for i, (lam, r) in enumerate(zip(res.evals, res.resids)):
         log(f"Mugiq: Eval[{i:04d}] = {lam:+.16e} , Residual = {r:+.16e}")

@@ -21,7 +21,10 @@ class WilsonDiracKernel:
 
     U_k [T, 4, 18, Z, Y*X]: phased links; A_blocks [T, 2, 6, 6, 2, Z, Y*X]
     (clover_np.clover_chiral_blocks_np) or None.  precision="bf16" stores
-    links and clover in bfloat16; spinors and all arithmetic stay f32.
+    links and clover in bfloat16; all arithmetic stays f32.  M, M^dag and
+    their products take a field [T, 24, Z, Y*X] or a batch [b, T, 24, Z,
+    Y*X] (one K1 launch per application), f32 or bf16 (the stored
+    vectors of a bf16 Krylov basis), and return psi's dtype.
     """
 
     def __init__(self, U_k: torch.Tensor, kappa: float, Y: int,

@@ -1,1 +1,2 @@
-"""Eigensolver helpers (Chebyshev acceleration)."""
+"""Eigensolver helpers (Chebyshev acceleration) and the Krylov-Schur
+Arnoldi of the non-normal operators M / M^dag."""

@@ -27,7 +27,10 @@ def chebyshev_op(matvec: Callable, poly_deg: int, a_min: float,
     """p(A): the degree-poly_deg Chebyshev polynomial of A mapped so that
     [a_min, a_max] -> [-1, 1]; eigenvalues below a_min grow exponentially
     in poly_deg and become the largest of p(A) (QUDA's poly_deg / a_min /
-    a_max, include/eigsolve_mugiq.h:27-30)."""
+    a_max, include/eigsolve_mugiq.h:27-30).  The chain keeps the input's
+    dtype: its Python-float scalars keep a bf16 field (a vector of a bf16
+    Krylov basis) bf16, as JAX's weak-typed scalars do, and it takes a
+    leading batch axis when the operator does."""
     d = 0.5 * (a_max - a_min)
     c = 0.5 * (a_max + a_min)
 

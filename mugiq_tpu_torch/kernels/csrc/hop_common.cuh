@@ -6,7 +6,7 @@
 //
 // Field layouts (sites minor; S is the stride between component planes,
 // the number of sites of one t-slice):
-//   spinor  comp = r*12 + s*3 + c                   (f32, or bf16 for K4)
+//   spinor  comp = r*12 + s*3 + c                   (f32, or bf16 for K1, K4, K6)
 //   link    comp = r*9 + a*3 + b                    (f32 or bf16)
 //   clover  idx  = ((chi*6 + k)*6 + j)*2 + r        (f32 or bf16)
 // Loads of bf16 upcast to f32; all arithmetic is f32.

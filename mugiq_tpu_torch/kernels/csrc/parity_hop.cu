@@ -30,6 +30,14 @@
 // (hop_common.cuh).  Loads of bf16 links/clover upcast to f32; all
 // arithmetic is f32.
 //
+// Spinor forms: psi_in, psi_out and out are all f32 or all bf16.  With a
+// bf16 Krylov basis the Schur operator's pass 1 writes d_oe in bf16 and
+// pass 2 reads it back, as the JAX operator rounds d_oe to psi_in's dtype
+// (schur_kernel.py parity_hop_pallas's out_shape); a bf16 store rounds to
+// nearest even.  Batch: the three spinors may hold b fields
+// [b, T, 24, Z, Y*Xh] in one launch (the batch index in the grid's y
+// dimension, a field stride per vector; links and clover shared).
+//
 // Layouts (packed, S = Z*Y*Xh sites per t-slice):
 //   psi_in, psi_out, out [T, 24, Z, Y*Xh]
 //   U_out, U_in          [T, 4, 18, Z, Y*Xh]    (f32 or bf16)
@@ -48,17 +56,22 @@
 
 namespace {
 
-template <bool DAG, int MODE, typename LT>
+template <bool DAG, int MODE, typename LT, typename PT>
 __global__ void __launch_bounds__(128)
-parity_hop_kernel(const float* __restrict__ psi_in, const LT* __restrict__ Uo,
+parity_hop_kernel(const PT* __restrict__ psi_in, const LT* __restrict__ Uo,
                   const LT* __restrict__ Ui, const LT* __restrict__ Apost,
-                  const float* __restrict__ psi_out, const LT* __restrict__ Acomb,
-                  float* __restrict__ out, int T, int Z, int Y, int Xh,
+                  const PT* __restrict__ psi_out, const LT* __restrict__ Acomb,
+                  PT* __restrict__ out, int T, int Z, int Y, int Xh,
                   int parity_out, float kappa2) {
   const long long YXh = (long long)Y * Xh;
   const long long S = YXh * Z;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= S * T) return;
+  // vector blockIdx.y of the batch
+  const long long field = (long long)blockIdx.y * 24 * S * T;
+  psi_in += field;
+  out += field;
+  if constexpr (MODE >= 2) psi_out += field;
   const int t = (int)(i / S);
   const long long zyx = i - (long long)t * S;
   const int z = (int)(zyx / YXh);
@@ -73,7 +86,7 @@ parity_hop_kernel(const float* __restrict__ psi_in, const LT* __restrict__ Uo,
   const long long ps_t = 24 * S;   // spinor t-stride
   const long long u_t = 72 * S;    // link t-stride
   const long long u_mu = 18 * S;   // link mu-stride
-  const float* pt = psi_in + t * ps_t;
+  const PT* pt = psi_in + t * ps_t;
   const LT* uot = Uo + t * u_t;
   const LT* uit = Ui + t * u_t;
   const long long zy = (long long)z * YXh + (long long)y * Xh;
@@ -123,8 +136,8 @@ parity_hop_kernel(const float* __restrict__ psi_in, const LT* __restrict__ Uo,
       for (int c = 0; c < 3; ++c) acc[s][c] = h[s][c];
   }
 
-  float* o = out + t * ps_t + zyx;
-  const float* pe = MODE >= 2 ? psi_out + t * ps_t + zyx : nullptr;
+  PT* o = out + t * ps_t + zyx;
+  const PT* pe = MODE >= 2 ? psi_out + t * ps_t + zyx : nullptr;
   const LT* ac = MODE == 3 ? Acomb + t * 144 * S + zyx : nullptr;
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
@@ -139,64 +152,79 @@ parity_hop_kernel(const float* __restrict__ psi_in, const LT* __restrict__ Uo,
           d = spin(pe, S, s, c);
         v = make_float2(d.x - kappa2 * v.x, d.y - kappa2 * v.y);
       }
-      o[(long long)(s * 3 + c) * S] = v.x;
-      o[(long long)(12 + s * 3 + c) * S] = v.y;
+      stf(o + (long long)(s * 3 + c) * S, v.x);
+      stf(o + (long long)(12 + s * 3 + c) * S, v.y);
     }
   }
 }
 
-template <bool DAG, int MODE, typename LT>
+template <bool DAG, int MODE, typename LT, typename PT>
 void launch(const void* psi_in, const void* Uo, const void* Ui, const void* Apost,
             const void* psi_out, const void* Acomb, void* out, int T, int Z,
-            int Y, int Xh, int parity_out, float kappa2, cudaStream_t st) {
+            int Y, int Xh, int parity_out, float kappa2, int batch, cudaStream_t st) {
   const long long V = (long long)T * Z * Y * Xh;
-  const unsigned grid = (unsigned)((V + 127) / 128);
-  parity_hop_kernel<DAG, MODE, LT><<<grid, 128, 0, st>>>(
-      static_cast<const float*>(psi_in), static_cast<const LT*>(Uo),
+  const dim3 grid((unsigned)((V + 127) / 128), (unsigned)batch);
+  parity_hop_kernel<DAG, MODE, LT, PT><<<grid, 128, 0, st>>>(
+      static_cast<const PT*>(psi_in), static_cast<const LT*>(Uo),
       static_cast<const LT*>(Ui), static_cast<const LT*>(Apost),
-      static_cast<const float*>(psi_out), static_cast<const LT*>(Acomb),
-      static_cast<float*>(out), T, Z, Y, Xh, parity_out, kappa2);
+      static_cast<const PT*>(psi_out), static_cast<const LT*>(Acomb),
+      static_cast<PT*>(out), T, Z, Y, Xh, parity_out, kappa2);
 }
 
-template <bool DAG, typename LT>
-void by_mode(int mode, const void* psi_in, const void* Uo, const void* Ui,
-             const void* Apost, const void* psi_out, const void* Acomb, void* out,
-             int T, int Z, int Y, int Xh, int parity_out, float kappa2,
-             cudaStream_t st) {
+// The arguments every instance takes, passed through the dispatch levels.
+struct Args {
+  const void *psi_in, *Uo, *Ui, *Apost, *psi_out, *Acomb;
+  void* out;
+  int T, Z, Y, Xh, parity_out;
+  float kappa2;
+  int batch;
+  cudaStream_t st;
+};
+
+template <bool DAG, int MODE, typename LT, typename PT>
+void run(const Args& a) {
+  launch<DAG, MODE, LT, PT>(a.psi_in, a.Uo, a.Ui, a.Apost, a.psi_out, a.Acomb, a.out,
+                            a.T, a.Z, a.Y, a.Xh, a.parity_out, a.kappa2, a.batch, a.st);
+}
+
+template <bool DAG, typename LT, typename PT>
+void by_mode(int mode, const Args& a) {
   switch (mode) {
-    case 0: launch<DAG, 0, LT>(psi_in, Uo, Ui, Apost, psi_out, Acomb, out, T, Z, Y, Xh, parity_out, kappa2, st); break;
-    case 1: launch<DAG, 1, LT>(psi_in, Uo, Ui, Apost, psi_out, Acomb, out, T, Z, Y, Xh, parity_out, kappa2, st); break;
-    case 2: launch<DAG, 2, LT>(psi_in, Uo, Ui, Apost, psi_out, Acomb, out, T, Z, Y, Xh, parity_out, kappa2, st); break;
-    default: launch<DAG, 3, LT>(psi_in, Uo, Ui, Apost, psi_out, Acomb, out, T, Z, Y, Xh, parity_out, kappa2, st); break;
+    case 0: run<DAG, 0, LT, PT>(a); break;
+    case 1: run<DAG, 1, LT, PT>(a); break;
+    case 2: run<DAG, 2, LT, PT>(a); break;
+    default: run<DAG, 3, LT, PT>(a); break;
   }
 }
 
-template <typename LT>
-void dispatch(int dagger, int mode, const void* psi_in, const void* Uo,
-              const void* Ui, const void* Apost, const void* psi_out,
-              const void* Acomb, void* out, int T, int Z, int Y, int Xh,
-              int parity_out, float kappa2, cudaStream_t st) {
-  if (dagger)
-    by_mode<true, LT>(mode, psi_in, Uo, Ui, Apost, psi_out, Acomb, out, T, Z, Y, Xh, parity_out, kappa2, st);
-  else
-    by_mode<false, LT>(mode, psi_in, Uo, Ui, Apost, psi_out, Acomb, out, T, Z, Y, Xh, parity_out, kappa2, st);
+template <typename LT, typename PT>
+void dispatch(int dagger, int mode, const Args& a) {
+  if (dagger) by_mode<true, LT, PT>(mode, a);
+  else by_mode<false, LT, PT>(mode, a);
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success); mode 0-3 as above.
+// psi_in, psi_out and out hold `batch` fields of the spinor type (bf16 if
+// spinor_bf16, else f32).
 extern "C" int mugiq_parity_hop(const void* psi_in, const void* Uo, const void* Ui,
                                 const void* Apost, const void* psi_out,
                                 const void* Acomb, void* out, int T, int Z, int Y,
                                 int Xh, int parity_out, int dagger, int mode,
-                                float kappa2, int link_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode < 0 || mode > 3) return static_cast<int>(cudaErrorInvalidValue);
-  if (link_bf16)
-    dispatch<__nv_bfloat16>(dagger, mode, psi_in, Uo, Ui, Apost, psi_out, Acomb, out,
-                            T, Z, Y, Xh, parity_out, kappa2, st);
-  else
-    dispatch<float>(dagger, mode, psi_in, Uo, Ui, Apost, psi_out, Acomb, out,
-                    T, Z, Y, Xh, parity_out, kappa2, st);
+                                float kappa2, int link_bf16, int spinor_bf16,
+                                int batch, void* stream) {
+  if (mode < 0 || mode > 3 || batch < 1 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{psi_in, Uo, Ui, Apost, psi_out, Acomb, out, T, Z, Y, Xh,
+               parity_out, kappa2, batch, static_cast<cudaStream_t>(stream)};
+  using bf16 = __nv_bfloat16;
+  if (link_bf16) {
+    if (spinor_bf16) dispatch<bf16, bf16>(dagger, mode, a);
+    else dispatch<bf16, float>(dagger, mode, a);
+  } else {
+    if (spinor_bf16) dispatch<float, bf16>(dagger, mode, a);
+    else dispatch<float, float>(dagger, mode, a);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,6 +24,15 @@
 // (hop8) and the clover row live in hop_common.cuh; K4 (dslash_hop.cu) is
 // the same hop8 with no diagonal and no combine.
 //
+// Spinor forms: psi and out are both f32 or both bf16 (the stored vectors
+// of a bf16 Krylov basis feed the operator as they are, as the JAX kernel
+// takes psi's dtype for its output); loads upcast, arithmetic is f32, and
+// a bf16 store rounds to nearest even (hop_common.cuh stf).  Batch: psi
+// and out may hold b fields [b, T, 24, Z, Y*X] (block Lanczos applies the
+// operator to a block, the JAX package through vmap of the Pallas call);
+// one launch covers them, the batch index in the grid's y dimension and a
+// field stride per vector.  The links are read once per vector.
+//
 // What bounds it on the H100: memory.  Per site it moves 24 floats of psi
 // (plus 8 neighbour spinors, shared with other threads through L1/L2),
 // 72 link words (8 hops: 4 local links, 4 neighbour links), 24 floats of
@@ -36,15 +45,18 @@
 
 namespace {
 
-template <bool DAG, bool CLOVER, typename LT>
+template <bool DAG, bool CLOVER, typename LT, typename PT>
 __global__ void __launch_bounds__(128)
-wilson_m_kernel(const float* __restrict__ psi, const LT* __restrict__ U,
-                const LT* __restrict__ A, float* __restrict__ out,
+wilson_m_kernel(const PT* __restrict__ psi, const LT* __restrict__ U,
+                const LT* __restrict__ A, PT* __restrict__ out,
                 int T, int Z, int Y, int X, float kappa) {
   const long long YX = (long long)Y * X;
   const long long S = YX * Z;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= S * T) return;
+  // vector blockIdx.y of the batch
+  psi += (long long)blockIdx.y * 24 * S * T;
+  out += (long long)blockIdx.y * 24 * S * T;
   const int t = (int)(i / S);
   const long long zyx = i - (long long)t * S;
   const int z = (int)(zyx / YX);
@@ -56,7 +68,7 @@ wilson_m_kernel(const float* __restrict__ psi, const LT* __restrict__ U,
   const int tp = t + 1 == T ? 0 : t + 1, tm = t == 0 ? T - 1 : t - 1;
   const long long ps_t = 24 * S;   // psi t-stride
   const long long u_t = 72 * S;    // U t-stride
-  const float* pt = psi + t * ps_t;
+  const PT* pt = psi + t * ps_t;
   const long long zy = (long long)z * YX + (long long)y * X;
   const Nbr n{zyx, zy + xp, zy + xm,
               (long long)z * YX + (long long)yp * X + x,
@@ -67,8 +79,8 @@ wilson_m_kernel(const float* __restrict__ psi, const LT* __restrict__ U,
   hop8<DAG>(pt, psi + tp * ps_t, psi + tm * ps_t, U + t * u_t, U + tm * u_t + 3 * 18 * S, S,
             n, acc);
 
-  const float* pc = pt + zyx;
-  float* o = out + t * ps_t + zyx;
+  const PT* pc = pt + zyx;
+  PT* o = out + t * ps_t + zyx;
   const LT* at = CLOVER ? A + t * 144 * S + zyx : nullptr;
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
@@ -80,46 +92,57 @@ wilson_m_kernel(const float* __restrict__ psi, const LT* __restrict__ U,
       } else {
         d = spin(pc, S, s, c);
       }
-      o[(long long)(s * 3 + c) * S] = d.x - kappa * acc[s][c].x;
-      o[(long long)(12 + s * 3 + c) * S] = d.y - kappa * acc[s][c].y;
+      stf(o + (long long)(s * 3 + c) * S, d.x - kappa * acc[s][c].x);
+      stf(o + (long long)(12 + s * 3 + c) * S, d.y - kappa * acc[s][c].y);
     }
   }
 }
 
-template <bool DAG, bool CLOVER, typename LT>
+template <bool DAG, bool CLOVER, typename LT, typename PT>
 void launch(const void* psi, const void* U, const void* A, void* out,
-            int T, int Z, int Y, int X, float kappa, cudaStream_t st) {
+            int T, int Z, int Y, int X, float kappa, int batch, cudaStream_t st) {
   const long long V = (long long)T * Z * Y * X;
-  const unsigned grid = (unsigned)((V + 127) / 128);
-  wilson_m_kernel<DAG, CLOVER, LT><<<grid, 128, 0, st>>>(
-      static_cast<const float*>(psi), static_cast<const LT*>(U),
-      static_cast<const LT*>(A), static_cast<float*>(out), T, Z, Y, X, kappa);
+  const dim3 grid((unsigned)((V + 127) / 128), (unsigned)batch);
+  wilson_m_kernel<DAG, CLOVER, LT, PT><<<grid, 128, 0, st>>>(
+      static_cast<const PT*>(psi), static_cast<const LT*>(U),
+      static_cast<const LT*>(A), static_cast<PT*>(out), T, Z, Y, X, kappa);
 }
 
-template <typename LT>
+template <typename LT, typename PT>
 void dispatch(const void* psi, const void* U, const void* A, void* out, int T,
               int Z, int Y, int X, float kappa, int dagger, int clover,
-              cudaStream_t st) {
+              int batch, cudaStream_t st) {
   if (dagger) {
-    if (clover) launch<true, true, LT>(psi, U, A, out, T, Z, Y, X, kappa, st);
-    else launch<true, false, LT>(psi, U, A, out, T, Z, Y, X, kappa, st);
+    if (clover) launch<true, true, LT, PT>(psi, U, A, out, T, Z, Y, X, kappa, batch, st);
+    else launch<true, false, LT, PT>(psi, U, A, out, T, Z, Y, X, kappa, batch, st);
   } else {
-    if (clover) launch<false, true, LT>(psi, U, A, out, T, Z, Y, X, kappa, st);
-    else launch<false, false, LT>(psi, U, A, out, T, Z, Y, X, kappa, st);
+    if (clover) launch<false, true, LT, PT>(psi, U, A, out, T, Z, Y, X, kappa, batch, st);
+    else launch<false, false, LT, PT>(psi, U, A, out, T, Z, Y, X, kappa, batch, st);
   }
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 = success).
+// Returns the cudaError_t of the launch (0 = success).  psi and out hold
+// `batch` fields of the spinor type (bf16 if spinor_bf16, else f32).
 extern "C" int mugiq_wilson_m(const void* psi, const void* U, const void* A,
                               void* out, int T, int Z, int Y, int X,
                               float kappa, int dagger, int clover,
-                              int link_bf16, void* stream) {
+                              int link_bf16, int spinor_bf16, int batch,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (link_bf16)
-    dispatch<__nv_bfloat16>(psi, U, A, out, T, Z, Y, X, kappa, dagger, clover, st);
-  else
-    dispatch<float>(psi, U, A, out, T, Z, Y, X, kappa, dagger, clover, st);
+  if (batch < 1 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  if (link_bf16) {
+    if (spinor_bf16)
+      dispatch<bf16, bf16>(psi, U, A, out, T, Z, Y, X, kappa, dagger, clover, batch, st);
+    else
+      dispatch<bf16, float>(psi, U, A, out, T, Z, Y, X, kappa, dagger, clover, batch, st);
+  } else {
+    if (spinor_bf16)
+      dispatch<float, bf16>(psi, U, A, out, T, Z, Y, X, kappa, dagger, clover, batch, st);
+    else
+      dispatch<float, float>(psi, U, A, out, T, Z, Y, X, kappa, dagger, clover, batch, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }

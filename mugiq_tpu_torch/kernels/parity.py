@@ -3,7 +3,9 @@
 :func:`parity_hop` launches the CUDA kernel ``csrc/parity_hop.cu`` for
 CUDA tensors and runs its plain PyTorch twin :func:`parity_hop_plain` for
 CPU tensors; any other device raises.  The kernel replaces the TPU kernel
-``mugiq_tpu/pallas/schur_kernel.py`` ``parity_hop_pallas`` (:350).  It is
+``mugiq_tpu/pallas/schur_kernel.py`` ``parity_hop_pallas`` (:350), and
+its vmap over a block: f32 or bf16 spinors (the output in psi_in's
+dtype), one field or a batch of them in one launch.  It is
 memory-bound (768 B per packed site and pass against 1320 flop); see the
 source for its design.
 
@@ -17,7 +19,8 @@ import ctypes
 import torch
 
 from . import build
-from .wilson import clover_apply_plain, dslash_hop_plain
+from .wilson import (SPINOR_DTYPES, batch_shape, clover_apply_plain,
+                     dslash_hop_plain)
 
 _fn = None
 
@@ -31,7 +34,7 @@ def _entry():
         fn = build.load("parity_hop").mugiq_parity_hop
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                       ctypes.c_float, I, P]
+                       ctypes.c_float, I, I, I, P]
         fn.restype = I
         _fn = fn
     return _fn
@@ -53,7 +56,7 @@ def _mode(kappa2, psi_out, A_post, A_comb) -> int:
 
 
 def _extents(psi_in, Y: int):
-    T, _, Z, YXh = psi_in.shape
+    _, T, Z, YXh = batch_shape(psi_in, "parity_hop")
     if YXh % Y:
         raise ValueError(f"parity_hop: Y={Y} does not divide Y*Xh={YXh}")
     Xh = YXh // Y
@@ -70,11 +73,17 @@ def parity_hop_plain(psi_in, U_out, U_in, Y: int, parity_out: int,
     index arithmetic with the kernel: unpack the input spinor (zero on the
     output parity) and both link parities, apply the full-volume hop
     (dslash_hop_plain, torch.roll neighbours), keep the output parity, then
-    apply A_post or the combine."""
+    apply A_post or the combine.  Spinors upcast to f32; the f32 result is
+    rounded once to psi_in's dtype; a batch one field at a time."""
     # imported here: schur_kernel imports this module for its operator
     from ..schur_kernel import pack_parity, unpack_parities
 
     _mode(kappa2, psi_out, A_post, A_comb)
+    if psi_in.ndim == 5:
+        return torch.stack([
+            parity_hop_plain(p, U_out, U_in, Y, parity_out, dagger, kappa2,
+                             None if psi_out is None else psi_out[i], A_post,
+                             A_comb) for i, p in enumerate(psi_in)])
     T, Z, Xh = _extents(psi_in, Y)
     zero = torch.zeros_like(psi_in)
     links = [u.reshape(T, 72, Z, Y * Xh) for u in (U_out, U_in)]
@@ -84,22 +93,25 @@ def parity_hop_plain(psi_in, U_out, U_in, Y: int, parity_out: int,
     else:
         psi = unpack_parities(psi_in, zero, Y)
         U = unpack_parities(links[1], links[0], Y)
-    full = dslash_hop_plain(psi, U.reshape(T, 4, 18, Z, 2 * Y * Xh), dagger, Y)
+    full = dslash_hop_plain(psi, U.reshape(T, 4, 18, Z, 2 * Y * Xh), dagger, Y,
+                            torch.float32)
     hop = pack_parity(full, Y, parity_out)
     if A_post is not None:
         hop = clover_apply_plain(A_post, hop)
-    if kappa2 is None:
-        return hop
-    diag = psi_out.float() if A_comb is None else clover_apply_plain(A_comb,
-                                                                     psi_out)
-    return diag - kappa2 * hop
+    if kappa2 is not None:
+        diag = (psi_out.float() if A_comb is None
+                else clover_apply_plain(A_comb, psi_out))
+        hop = diag - kappa2 * hop
+    return hop.to(psi_in.dtype)
 
 
 def parity_hop(psi_in, U_out, U_in, Y: int, parity_out: int, dagger: bool,
                kappa2=None, psi_out=None, A_post=None, A_comb=None, out=None):
     """Hop from the input parity (1 - parity_out) to the output parity.
 
-    psi_in [T, 24, Z, Y*Xh] f32; U_out / U_in [T, 4, 18, Z, Y*Xh] the links
+    psi_in [T, 24, Z, Y*Xh] or a batch [b, T, 24, Z, Y*Xh], f32 or bf16
+    (psi_out and out alike: the same shape and dtype; f32 arithmetic; a
+    batch is one launch); U_out / U_in [T, 4, 18, Z, Y*Xh] the links
     based at output- / input-parity sites (phased, f32 or bf16).
     kappa2 + psi_out: out = psi_out - kappa2 * hop, or with A_comb
     [T, 144, Z, Y*Xh] out = A_comb psi_out - kappa2 * hop; A_post (without
@@ -119,8 +131,8 @@ def parity_hop(psi_in, U_out, U_in, Y: int, parity_out: int, dagger: bool,
     T, Z, Xh = _extents(psi_in, Y)
     YXh = Y * Xh
     dev = psi_in.device
-    f32 = (torch.float32,)
-    build.require(psi_in, "psi_in", (T, 24, Z, YXh), f32, dev)
+    build.require(psi_in, "psi_in", psi_in.shape, SPINOR_DTYPES, dev)
+    same = (psi_in.dtype,)
     build.require(U_out, "U_out", (T, 4, 18, Z, YXh),
                   (torch.float32, torch.bfloat16), dev)
     build.require(U_in, "U_in", U_out.shape, (U_out.dtype,), dev)
@@ -128,10 +140,10 @@ def parity_hop(psi_in, U_out, U_in, Y: int, parity_out: int, dagger: bool,
         if a is not None:
             build.require(a, name, (T, 144, Z, YXh), (U_out.dtype,), dev)
     if psi_out is not None:
-        build.require(psi_out, "psi_out", psi_in.shape, f32, dev)
+        build.require(psi_out, "psi_out", psi_in.shape, same, dev)
     if out is None:
         out = torch.empty_like(psi_in)
-    build.require(out, "out", psi_in.shape, f32, dev)
+    build.require(out, "out", psi_in.shape, same, dev)
     if out.data_ptr() == psi_in.data_ptr() or (
             psi_out is not None and out.data_ptr() == psi_out.data_ptr()):
         raise ValueError("parity_hop: out must alias neither psi_in nor "
@@ -140,11 +152,14 @@ def parity_hop(psi_in, U_out, U_in, Y: int, parity_out: int, dagger: bool,
     def ptr(a):
         return None if a is None else a.data_ptr()
 
+    bf = torch.bfloat16
     with torch.cuda.device(dev):
         rc = _entry()(psi_in.data_ptr(), U_out.data_ptr(), U_in.data_ptr(),
                       ptr(A_post), ptr(psi_out), ptr(A_comb), out.data_ptr(),
                       T, Z, Y, Xh, int(parity_out), int(dagger), mode,
-                      float(kappa2 or 0.0), int(U_out.dtype == torch.bfloat16),
+                      float(kappa2 or 0.0), int(U_out.dtype == bf),
+                      int(psi_in.dtype == bf),
+                      psi_in.shape[0] if psi_in.ndim == 5 else 1,
                       build.stream_handle(dev))
     build.check(rc, "parity_hop")
     parity_hop.launches += 1

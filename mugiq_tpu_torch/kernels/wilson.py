@@ -1,8 +1,10 @@
 """The Wilson stencil kernels on the kernel layout.
 
 * K1 :func:`wilson_m` (``csrc/wilson_m.cu``): the fused Wilson(-clover)
-  operator M / M^dag; replaces ``mugiq_tpu/pallas/dslash_kernel.py``
-  ``wilson_m_pallas`` (:395) and ``wilson_m_pallas_gl`` (:747).
+  operator M / M^dag, f32 or bf16 spinors (the output in psi's dtype),
+  one field or a batch of them in one launch; replaces
+  ``mugiq_tpu/pallas/dslash_kernel.py`` ``wilson_m_pallas`` (:395) and
+  ``wilson_m_pallas_gl`` (:747), and their vmap over a block.
 * K4 :func:`dslash_hop` (``csrc/dslash_hop.cu``): the bare hopping term
   D psi / D^dag psi, f32 or bf16 in and out; replaces
   ``dslash_hop_pallas`` (:436) and ``dslash_hop_pallas_gl`` (:726).
@@ -34,10 +36,28 @@ def _entry():
     if _fn is None:
         fn = build.load("wilson_m").mugiq_wilson_m
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, I, I, I, I, ctypes.c_float, I, I, I, P]
+        fn.argtypes = [P, P, P, P, I, I, I, I, ctypes.c_float, I, I, I, I,
+                       I, P]
         fn.restype = I
         _fn = fn
     return _fn
+
+
+#: spinor dtypes of K1 and K6 (the output takes the input's)
+SPINOR_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def batch_shape(psi, what: str):
+    """(batch, T, Z, last) of a field [T, 24, Z, last] (batch 1) or a
+    batch of them [b, T, 24, Z, last]."""
+    if psi.ndim not in (4, 5) or psi.shape[-3] != 24:
+        raise ValueError(f"{what}: spinor shape {tuple(psi.shape)}, expected "
+                         f"[T, 24, Z, .] or [b, T, 24, Z, .]")
+    b = psi.shape[0] if psi.ndim == 5 else 1
+    if b < 1:
+        raise ValueError(f"{what}: empty batch")
+    T, _, Z, last = psi.shape[-4:]
+    return b, T, Z, last
 
 
 # lattice direction -> axis of a [T, 4|3, 3, Z, Y, X] complex field
@@ -114,43 +134,52 @@ def clover_apply_plain(A144, psi):
 
 def wilson_m_plain(psi, U, A144, kappa: float, dagger: bool, Y: int):
     """Plain PyTorch twin of the kernel: A psi - kappa D psi with the hop of
-    dslash_hop_plain; links and clover upcast to f32 as in the kernel."""
+    dslash_hop_plain; spinor, links and clover upcast to f32 as in the
+    kernel, the f32 result rounded once to psi's dtype (bf16: to nearest
+    even); a batch [b, T, 24, Z, Y*X] one field at a time."""
+    if psi.ndim == 5:
+        return torch.stack([wilson_m_plain(p, U, A144, kappa, dagger, Y)
+                            for p in psi])
     diag = psi.float() if A144 is None else clover_apply_plain(A144, psi)
-    return diag - kappa * dslash_hop_plain(psi, U, dagger, Y)
+    return (diag - kappa * dslash_hop_plain(psi, U, dagger, Y,
+                                            torch.float32)).to(psi.dtype)
 
 
 def wilson_m(psi, U, A144, kappa: float, dagger: bool, Y: int, out=None):
     """out = A psi - kappa D psi (M), or with the projectors swapped (M^dag).
 
-    psi [T, 24, Z, Y*X] f32; U [T, 4, 18, Z, Y*X] phased links, f32 or
-    bf16; A144 [T, 144, Z, Y*X] clover chiral blocks of U's dtype, or None
-    for Wilson.  CUDA tensors launch the kernel, CPU tensors run the twin.
+    psi [T, 24, Z, Y*X] or a batch [b, T, 24, Z, Y*X], f32 or bf16 (out
+    in psi's dtype, f32 arithmetic; a batch is one launch); U
+    [T, 4, 18, Z, Y*X] phased links, f32 or bf16; A144 [T, 144, Z, Y*X]
+    clover chiral blocks of U's dtype, or None for Wilson.  CUDA tensors
+    launch the kernel, CPU tensors run the twin.
     """
     if psi.device.type == "cpu":
         res = wilson_m_plain(psi, U, A144, kappa, dagger, Y)
         return res if out is None else out.copy_(res)
     if psi.device.type != "cuda":
         raise ValueError(f"wilson_m: no kernel for device {psi.device}")
-    T, _, Z, YX = psi.shape
+    b, T, Z, YX = batch_shape(psi, "wilson_m")
     if YX % Y:
         raise ValueError(f"wilson_m: Y={Y} does not divide Y*X={YX}")
     dev = psi.device
-    build.require(psi, "psi", (T, 24, Z, YX), (torch.float32,), dev)
+    build.require(psi, "psi", psi.shape, SPINOR_DTYPES, dev)
     build.require(U, "U", (T, 4, 18, Z, YX), (torch.float32, torch.bfloat16),
                   dev)
     if A144 is not None:
         build.require(A144, "A144", (T, 144, Z, YX), (U.dtype,), dev)
     if out is None:
         out = torch.empty_like(psi)
-    build.require(out, "out", psi.shape, (torch.float32,), dev)
+    build.require(out, "out", psi.shape, (psi.dtype,), dev)
     if out.data_ptr() == psi.data_ptr():
         raise ValueError("wilson_m: out must not alias psi (neighbour reads)")
+    bf = torch.bfloat16
     with torch.cuda.device(dev):
         rc = _entry()(psi.data_ptr(), U.data_ptr(),
                       None if A144 is None else A144.data_ptr(),
                       out.data_ptr(), T, Z, Y, YX // Y, float(kappa),
-                      int(dagger), int(A144 is not None),
-                      int(U.dtype == torch.bfloat16), build.stream_handle(dev))
+                      int(dagger), int(A144 is not None), int(U.dtype == bf),
+                      int(psi.dtype == bf), b, build.stream_handle(dev))
     build.check(rc, "wilson_m")
     wilson_m.launches += 1
     return out

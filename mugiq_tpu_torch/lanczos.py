@@ -12,6 +12,14 @@ Kept from JAX: CGS2 full reorthogonalisation, thick restart with
 k = min(n_ev + max(1, (m - n_ev)//2), m - 2), the convergence test.
 The XLA machinery (donation, prefix blocking, caches) has no counterpart;
 the reorthogonalisation reads the live prefix V[:j+1] directly.
+
+basis_dtype=torch.bfloat16 stores V in bf16 (the planar/lanczos.py
+basis_dtype path): only stores round; the stored vector feeds the
+operator as it is and the operator's result is upcast; all algebra is
+f32.  The products with V (_mm) read the bf16 basis natively on CUDA,
+never an f32 copy of it.  The cycle (krylov_cycle) also records the
+Hessenberg matrix of a non-normal operator (hermitian=False), for the
+Krylov-Schur Arnoldi of eig/arnoldi_realpair.py.
 """
 
 from dataclasses import dataclass
@@ -49,25 +57,83 @@ def _jrot(x: torch.Tensor, ax: int) -> torch.Tensor:
     return torch.cat([xi, -xr], dim=ax)
 
 
+def _mm(a, b):
+    """a @ b of 2-D operands, one of them possibly the bf16 basis (the
+    port of planar/lanczos.py _make_ops.match): the result is in the
+    other operand's (the algebra's) dtype.  On CUDA the small operand is
+    cast to bf16 and torch.mm reads the basis natively, accumulating and
+    returning f32 (the aten::mm.dtype overload; XLA's
+    preferred_element_type=f32); an f32 copy of the basis would cost a
+    full pass per product.  On the CPU the bf16 operand is promoted, as
+    the JAX CPU backend does, which is exact."""
+    if a.dtype == b.dtype:
+        return a @ b
+    lo = torch.bfloat16
+    if a.device.type == "cuda":
+        return torch.mm(a.to(lo), b.to(lo), out_dtype=torch.float32)
+    dt = b.dtype if a.dtype == lo else a.dtype
+    return a.to(dt) @ b.to(dt)
+
+
 def _dots(V, w, ax):
     """d_i = <V_i, w> as [len(V), 2] (re, im); one pass over V."""
     W = torch.stack([w, _jrot(w, ax)]).reshape(2, -1)
-    return V.reshape(V.shape[0], -1) @ W.T
+    return _mm(V.reshape(V.shape[0], -1), W.T)
 
 
 def _axpy_sub(w, d, V, ax):
     """w - sum_i d_i V_i (complex d in parts)."""
-    C = (d.T @ V.reshape(V.shape[0], -1)).reshape((2,) + w.shape)
+    C = _mm(d.T, V.reshape(V.shape[0], -1)).reshape((2,) + w.shape)
     return w - C[0] + _jrot(C[1], ax)
 
 
 def _rotate(V, Qr, Qi, ax):
-    """V'_k = sum_i Q[i, k] V_i for complex Q = Qr + i Qi -> [k, *field]."""
+    """V'_k = sum_i Q[i, k] V_i for complex Q = Qr + i Qi -> [k, *field]
+    in Q's dtype (f32 from a bf16 basis)."""
     Vf = V.reshape(V.shape[0], -1)
     shape = (Qr.shape[1],) + V.shape[1:]
-    Cr = (Qr.T @ Vf).reshape(shape)
-    Ci = (Qi.T @ Vf).reshape(shape)
+    Cr = _mm(Qr.T, Vf).reshape(shape)
+    Ci = _mm(Qi.T, Vf).reshape(shape)
     return Cr - _jrot(Ci, ax + 1)
+
+
+def krylov_cycle(matvec: Callable, V: torch.Tensor, Tmat: torch.Tensor,
+                 j0: int, ax: int, reduce: Optional[Callable] = None,
+                 hermitian: bool = True):
+    """Krylov steps j0..m-1 with CGS2 full reorthogonalisation (port of
+    planar/lanczos.py _make_cycle): V [m+1, *field] (f32, or bf16 with
+    f32 algebra), Tmat [m, m, 2] the projected matrix, both updated in
+    place.  hermitian=True records the Lanczos T (column, conjugate row,
+    real beta sub- and super-diagonal); False the Arnoldi/Krylov-Schur
+    Hessenberg column and beta sub-diagonal.  Returns the last beta."""
+    m = Tmat.shape[0]
+    rdtype = Tmat.dtype
+    tiny = torch.finfo(rdtype).tiny
+    sign = torch.tensor([1.0, -1.0], dtype=rdtype, device=Tmat.device)
+    red = reduce or (lambda x: x)
+    beta = torch.zeros((), dtype=rdtype, device=Tmat.device)
+    for j in range(j0, m):
+        # the stored vector feeds the operator as it is; its result is
+        # upcast and the algebra stays f32
+        w = matvec(V[j]).to(rdtype)
+        Vp = V[:j + 1]
+        d = red(_dots(Vp, w, ax))
+        w = _axpy_sub(w, d, Vp, ax)
+        d2 = red(_dots(Vp, w, ax))
+        w = _axpy_sub(w, d2, Vp, ax)
+        col = d + d2                                      # [j+1, 2]
+        Tmat[:j + 1, j] = col
+        beta = norm(w, reduce)
+        V[j + 1] = w / torch.clamp(beta, min=tiny)
+        if hermitian:
+            Tmat[j, :j + 1] = col * sign                  # conjugate row
+        if j + 1 < m:
+            Tmat[j + 1, j, 0] = beta
+            Tmat[j + 1, j, 1] = 0.0
+            if hermitian:
+                Tmat[j, j + 1, 0] = beta
+                Tmat[j, j + 1, 1] = 0.0
+    return beta
 
 
 def norm(x: torch.Tensor, reduce: Optional[Callable] = None):
@@ -96,18 +162,21 @@ def lanczos_hermitian_realpair(
     which: str = "SR",
     check_interval: int = 1,
     reduce: Optional[Callable] = None,
+    basis_dtype: Optional[torch.dtype] = None,
 ) -> LanczosResult:
     """n_ev extremal eigenpairs of a Hermitian operator on real-pair fields.
 
-    The Krylov basis V [n_kr+1, *field] takes v0's dtype and device; all
-    GEMMs run in full f32 (the package pins TF32 off).
+    The Krylov basis V [n_kr+1, *field] lives on v0's device in
+    basis_dtype (default v0's dtype); all GEMMs run in full f32 (the
+    package pins TF32 off).  A bf16 basis halves the cycle algebra's
+    traffic; its residuals floor near bf16 storage eps (deflation-grade).
+    The evecs come back in v0's dtype.
 
     reduce: for a field sharded over ranks (v0 and matvec's fields are the
     local blocks), the sum over ranks of a tensor of local partial sums;
     every inner product and norm goes through it, so the projected matrix
     and every convergence decision are the same on every rank.  None on
     one device."""
-    red = reduce or (lambda x: x)
     which = normalize_which(which)
     shape = v0.shape
     ax = re_im_axis
@@ -116,37 +185,18 @@ def lanczos_hermitian_realpair(
     dev, rdtype = v0.device, v0.dtype
     m = n_kr
     k = max(min(n_ev + max(1, (m - n_ev) // 2), m - 2), n_ev)
-    tiny = torch.finfo(rdtype).tiny
-    sign = torch.tensor([1.0, -1.0], dtype=rdtype, device=dev)
 
-    V = torch.zeros((m + 1,) + tuple(shape), dtype=rdtype, device=dev)
+    V = torch.zeros((m + 1,) + tuple(shape), dtype=basis_dtype or rdtype,
+                    device=dev)
     V[0] = v0 / norm(v0, reduce)
     Tmat = torch.zeros((m, m, 2), dtype=rdtype, device=dev)
-    beta = torch.zeros((), dtype=rdtype, device=dev)
 
     j0 = 0
     converged = False
     theta = q = sel = None
     beta_h = 0.0
     for restart in range(max_restarts):
-        for j in range(j0, m):
-            w = matvec(V[j])
-            Vp = V[:j + 1]
-            d = red(_dots(Vp, w, ax))
-            w = _axpy_sub(w, d, Vp, ax)
-            d2 = red(_dots(Vp, w, ax))
-            w = _axpy_sub(w, d2, Vp, ax)
-            col = d + d2                                  # [j+1, 2]
-            Tmat[:j + 1, j] = col
-            beta = norm(w, reduce)
-            V[j + 1] = w / torch.clamp(beta, min=tiny)
-            Tmat[j, :j + 1] = col * sign                  # conjugate row
-            if j + 1 < m:
-                Tmat[j + 1, j, 0] = beta
-                Tmat[j + 1, j, 1] = 0.0
-                Tmat[j, j + 1, 0] = beta
-                Tmat[j, j + 1, 1] = 0.0
-        beta_h = float(beta)
+        beta_h = float(krylov_cycle(matvec, V, Tmat, j0, ax, reduce))
         T2 = Tmat.double().cpu().numpy()
         T_host = T2[..., 0] + 1j * T2[..., 1]
         theta, q = np.linalg.eigh((T_host + T_host.conj().T) / 2)

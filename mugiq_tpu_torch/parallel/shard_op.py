@@ -26,13 +26,19 @@ from .shard_dslash import (apply_halo, ext_dims, extend_links,
 
 class _Sharded:
     """What both operators share: the mesh, its halo exchange, the M/M^dag
-    compositions."""
+    compositions.  A batch [b, *field] (block Lanczos) is applied one
+    vector at a time, one exchange each."""
+
+    def _batched(self, psi, dagger: bool):
+        if psi.ndim == len(self._field_shape) + 1:
+            return torch.stack([self._apply(p, dagger) for p in psi])
+        return self._apply(psi, dagger)
 
     def M(self, psi):
-        return self._apply(psi, False)
+        return self._batched(psi, False)
 
     def Mdag(self, psi):
-        return self._apply(psi, True)
+        return self._batched(psi, True)
 
     def MdagM(self, psi):
         return self.Mdag(self.M(psi))

@@ -94,7 +94,7 @@ class EigParam:
     a_max: float = 0.0               # 0 -> auto-estimate
     check_interval: int = 1          # restarts between convergence checks
     seed: int = 1234                 # start-vector seed
-    block_size: int = 1              # >1: block Lanczos (not ported yet)
+    block_size: int = 1              # >1: block Lanczos
 
 
 @dataclass

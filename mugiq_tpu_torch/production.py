@@ -4,8 +4,11 @@ compute_evecs_production, compute_loop_production,
 _measure_production_kernel, _measure_tail).
 
 Eigensolve of MdagM (or MMdag) of the full operator, or of the packed
-even-odd preconditioned one, with thick-restart Lanczos, optionally
-Chebyshev-filtered and then Rayleigh-Ritz refined; the computeEvals tail;
+even-odd preconditioned one, with thick-restart Lanczos or block Lanczos
+(block_size > 1; one batched launch per block step), optionally
+Chebyshev-filtered and then Rayleigh-Ritz refined, with the Krylov basis
+in f32 or bf16; of M or M^dag with the Krylov-Schur Arnoldi; the
+computeEvals tail;
 the measurement on the kernel layout (K2 contraction, K3 displacement
 chains); the g5 map, momentum-projection GEMM and HDF5 output.  The
 MG-deflated loop (use_mg=True, _compute_loop_production_mg) eigensolves
@@ -23,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .block_lanczos import block_lanczos_hermitian_realpair
 from .dirac_kernel import WilsonDiracKernel
 from .io.hdf5io import write_loops_hdf5_mom
 from .kernels.contract import covariant_displace, gamma_project, loop_contract
@@ -38,12 +42,7 @@ from .params import (DslashType, EigOperator, EigParam, GaugeParam,
                      parse_disp_str)
 from .phase import (map_gamma_g5_planar, momentum_project_production,
                     phase_matrix_planar)
-from .utils import log, phase_timer, resolve_device
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to mugiq_tpu_torch yet "
-                              f"(ROADMAP queue 1, {item})")
+from .utils import log, not_ported, phase_timer, resolve_device
 
 
 def build_kernel_dirac(U_np: np.ndarray, gauge: GaugeParam, inv: InvertParam,
@@ -131,22 +130,37 @@ def compute_evecs_production(U_np: np.ndarray, gauge: GaugeParam,
                              even_odd: bool = False,
                              basis_precision: str = "f32", mesh=None,
                              device="cuda"):
-    """Eigensolve of MdagM/MMdag on the kernel layout (computeEvecsMuGiq,
-    lib/interface_mugiq.cpp:122-156): thick-restart Lanczos (+ optional
-    Chebyshev and Rayleigh-Ritz refine), then the computeEvals analog
-    (Rayleigh quotient, mass-normalization rescale, residuals, sigma).
-    even_odd=True eigensolves the packed even-odd preconditioned operator
-    (pc_solve): half-volume evecs [n, T, 24, Z, Y*X/2].
+    """Eigensolve on the kernel layout (computeEvecsMuGiq,
+    lib/interface_mugiq.cpp:122-156), dispatched as the JAX function does:
+    MdagM/MMdag by thick-restart Lanczos, or block Lanczos for
+    eig.block_size > 1 (+ optional Chebyshev and Rayleigh-Ritz refine),
+    then the computeEvals analog (Rayleigh quotient, mass-normalization
+    rescale, residuals, sigma); M/Mdag by the Krylov-Schur Arnoldi,
+    sigma = |evals|.  even_odd=True eigensolves the packed even-odd
+    preconditioned operator (pc_solve): half-volume evecs
+    [n, T, 24, Z, Y*X/2].  basis_precision="bf16" stores the Lanczos
+    basis in bf16 (f32 algebra; residuals floor near bf16 eps).
     mesh (a parallel.mesh.LatticeMesh): the sharded solve on the rank's
     block, on mesh.device; every inner product is reduced over the ranks
     and the evecs returned are the rank's blocks.
-    Returns (LanczosResult, evals, sigma, resids)."""
-    if eig.block_size > 1:
-        _not_ported("block Lanczos (block_size > 1)", "item 8")
-    if eig.operator in (EigOperator.M, EigOperator.Mdag):
-        _not_ported("the Arnoldi eigensolve of M / Mdag", "item 8")
-    if basis_precision != "f32":
-        _not_ported(f"basis_precision={basis_precision!r}", "item 3")
+    Returns (result, evals, sigma, resids)."""
+    if basis_precision not in ("f32", "bf16"):
+        raise ValueError(f"basis_precision must be f32|bf16: "
+                         f"{basis_precision}")
+    bdtype = torch.bfloat16 if basis_precision == "bf16" else None
+    nonnormal = eig.operator in (EigOperator.M, EigOperator.Mdag)
+    if nonnormal:
+        # makeChecks: poly acceleration needs a normal operator
+        # (eigsolve_mugiq.cpp:210-221)
+        if eig.use_poly_acc:
+            raise ValueError("Chebyshev acceleration requires a normal "
+                             "operator (MdagM/MMdag)")
+        if bdtype is not None:
+            raise ValueError("basis_precision='bf16' is implemented for "
+                             "the Hermitian Lanczos only (MdagM/MMdag)")
+    if bdtype is not None and mesh is not None:
+        not_ported("basis_precision='bf16' under a mesh (bf16 "
+                    "halo-extended spinors in K7a and K7b)", "item 7")
     dev = resolve_device(device) if mesh is None else mesh.device
     reduce = None if mesh is None else mesh.all_reduce
     with phase_timer("operator-setup"):
@@ -159,16 +173,39 @@ def compute_evecs_production(U_np: np.ndarray, gauge: GaugeParam,
 
     # start vector drawn on the host exactly as the JAX package draws it:
     # the global field on every rank, which keeps its block, so that one
-    # seed gives one start vector on any mesh
+    # seed gives one start vector on any mesh.  Block Lanczos: the block's
+    # other b - 1 vectors continue the same stream (the JAX production
+    # path draws them from a fresh generator of the same seed, so its
+    # second start vector repeats the first and the QR fills it from
+    # rounding noise; ROADMAP reference caveats)
     X, Y, Z, T = gauge.dims
+    b = eig.block_size
     rng = np.random.default_rng(seed)
-    v0 = rng.standard_normal((T, 24, Z, Y * X // (2 if even_odd else 1))
+    W0 = rng.standard_normal((b, T, 24, Z, Y * X // (2 if even_odd else 1))
                              ).astype(np.float32)
     if mesh is not None:
-        v0 = np.ascontiguousarray(mesh.local_block(v0))
-    v0 = torch.from_numpy(v0).to(dev)
+        W0 = np.ascontiguousarray(mesh.local_block(W0, lead=1))
+    W0 = torch.from_numpy(W0).to(dev)
+    v0 = W0[0]
 
     base = op.operator(eig.operator)
+    scale = (0.25 / inv.kappa ** 2
+             if inv.mass_normalization == MassNormalization.MASS else 1.0)
+    if nonnormal:
+        from .eig.arnoldi_realpair import arnoldi_krylov_schur_realpair
+        with phase_timer("eigensolve"):
+            res = arnoldi_krylov_schur_realpair(
+                base, v0, n_ev=eig.n_ev, n_kr=eig.n_kr, re_im_axis=1,
+                tol=eig.tol, max_restarts=eig.max_restarts,
+                which=eig.spectrum.value, check_interval=eig.check_interval,
+                reduce=reduce)
+        log(f"production eigensolve (Arnoldi, {eig.operator.name}): "
+            f"converged={res.converged} restarts={res.n_restarts}")
+        _check_branch(res, mesh)
+        evals = np.asarray(res.evals) * scale
+        # |lambda|: sigma = sqrt(lambda) only for a normal operator
+        return res, evals, np.abs(evals), list(np.asarray(res.resids))
+
     it_fn = base
     which = eig.spectrum.value
     if eig.use_poly_acc:
@@ -182,21 +219,26 @@ def compute_evecs_production(U_np: np.ndarray, gauge: GaugeParam,
             f"window=[{eig.a_min}, {a_max:.4f}]")
 
     with phase_timer("eigensolve"):
-        res = lanczos_hermitian_realpair(
-            it_fn, v0, n_ev=eig.n_ev, n_kr=eig.n_kr, re_im_axis=1,
-            tol=eig.tol, max_restarts=eig.max_restarts, which=which,
-            check_interval=eig.check_interval, reduce=reduce)
+        if b > 1:
+            # the operators (and the Chebyshev filter) take the batch axis:
+            # one launch per block application
+            res = block_lanczos_hermitian_realpair(
+                it_fn, W0, n_ev=eig.n_ev, n_kr=eig.n_kr, block_size=b,
+                re_im_axis=1, tol=eig.tol, max_restarts=eig.max_restarts,
+                which=which, check_interval=eig.check_interval,
+                matvec_batch=it_fn, v0_is_block=True, reduce=reduce,
+                basis_dtype=bdtype)
+        else:
+            res = lanczos_hermitian_realpair(
+                it_fn, v0, n_ev=eig.n_ev, n_kr=eig.n_kr, re_im_axis=1,
+                tol=eig.tol, max_restarts=eig.max_restarts, which=which,
+                check_interval=eig.check_interval, reduce=reduce,
+                basis_dtype=bdtype)
+    del W0, v0
     log(f"production eigensolve: converged={res.converged} "
         f"restarts={res.n_restarts}")
-    if mesh is not None:
-        from .parallel.distributed import gather_global
-        seen = gather_global((res.n_restarts, res.converged))
-        if len(set(seen)) != 1:
-            raise RuntimeError(f"the ranks took different convergence "
-                               f"branches (restarts, converged): {seen}")
+    _check_branch(res, mesh)
 
-    scale = (0.25 / inv.kappa ** 2
-             if inv.mass_normalization == MassNormalization.MASS else 1.0)
     if eig.use_poly_acc:
         # Ritz vectors of the filtered operator floor at the cluster width;
         # a Rayleigh-Ritz pass on the original operator resolves them
@@ -220,6 +262,17 @@ def compute_evecs_production(U_np: np.ndarray, gauge: GaugeParam,
     evals = np.asarray(lams)
     sigma = np.sqrt(np.maximum(evals, 0.0))
     return res, evals, sigma, rs
+
+
+def _check_branch(res, mesh) -> None:
+    """Under a mesh every rank must take the same convergence branch."""
+    if mesh is None:
+        return
+    from .parallel.distributed import gather_global
+    seen = gather_global((res.n_restarts, res.converged))
+    if len(set(seen)) != 1:
+        raise RuntimeError(f"the ranks took different convergence "
+                           f"branches (restarts, converged): {seen}")
 
 
 def compute_loop_production(U_np: np.ndarray, gauge: GaugeParam,
@@ -246,13 +299,13 @@ def compute_loop_production(U_np: np.ndarray, gauge: GaugeParam,
     _measure_production_sharded); data_mom is the global result on every
     rank and only the primary writes the HDF5 file."""
     if mesh is not None and use_mg:
-        _not_ported("the MG-deflated loop under a mesh (the JAX package's "
+        not_ported("the MG-deflated loop under a mesh (the JAX package's "
                     "sharded fine-level MG setup)", "item 15")
     if loop_param.write_pos_space_hdf5:
-        _not_ported("the position-space HDF5 writer (and its sharded form, "
+        not_ported("the position-space HDF5 writer (and its sharded form, "
                     "write_loops_hdf5_pos_sharded)", "item 4")
     if mesh is not None and keep_pos:
-        _not_ported("keep_pos under a mesh (the position-space loops of a "
+        not_ported("keep_pos under a mesh (the position-space loops of a "
                     "sharded run)", "item 4")
     dev = resolve_device(device) if mesh is None else mesh.device
     if use_mg:

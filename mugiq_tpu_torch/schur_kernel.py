@@ -80,8 +80,11 @@ class SchurDiracKernelPacked:
     Y*X] (clover_np.clover_chiral_blocks_np) or None; Ainv_blocks its
     site-wise inverse, computed on the host when not given.
     precision="bf16" stores links and clover blocks in bfloat16 (cast after
-    the inverse); spinors and arithmetic stay f32.  Only the packed links
-    and blocks are kept.
+    the inverse); arithmetic stays f32.  Only the packed links and blocks
+    are kept.  M, M^dag and their products take a packed field or a batch
+    [b, T, 24, Z, Y*Xh] (one launch per pass), f32 or bf16: with bf16
+    pass 1 rounds d_oe to bf16 and the result is bf16, as the JAX
+    operator's (its pass 1 writes psi_in's dtype).
     """
 
     def __init__(self, U_k: torch.Tensor, kappa: float, Y: int,

@@ -24,6 +24,13 @@ def log(msg: str):
     logger.info(msg)
 
 
+def not_ported(what: str, item: str):
+    """Raise for an option whose port is queued: the message names its
+    ROADMAP item."""
+    raise NotImplementedError(f"{what} is not ported to mugiq_tpu_torch yet "
+                              f"(ROADMAP queue 1, {item})")
+
+
 def pin_full_f32():
     """Full-f32 GEMMs and convolutions: TF32 keeps ~3 decimal digits, which
     floors the Krylov algebra (the JAX eigensolve needed HIGHEST precision

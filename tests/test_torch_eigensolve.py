@@ -106,10 +106,13 @@ def test_evec_checkpoint_round_trip(pc_run, tmp_path):
     np.testing.assert_array_equal(rs2, np.asarray(resids))
 
 
-@pytest.mark.parametrize("flags", [
-    ["--basis-precision", "bf16"], ["--mugiq-use-mg", "yes"],
-    ["--mesh", "1", "1", "--mugiq-use-mg", "yes"], ["--prec", "double"],
-    ["--eig-block-size", "2"]])
-def test_options_outside_slice_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("flags, item", [
+    (["--mugiq-use-mg", "yes"], "item 9"),
+    (["--mesh", "1", "1", "--mugiq-use-mg", "yes"], "item 9"),
+    (["--prec", "double"], "item 9"),
+    (["--basis-precision", "bf16", "--mesh", "1", "1"], "item 7")])
+def test_options_outside_slice_raise(flags, item):
+    """--basis-precision bf16 and --eig-block-size 2 on one device run
+    (tests/test_torch_bf16_basis.py, test_torch_block_lanczos.py)."""
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         cli.run(ARGS + PC + flags)

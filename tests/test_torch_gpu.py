@@ -13,8 +13,9 @@ boundary row launches held to the single pass bit for bit; K4-halo
 likewise, and K4 in all 16 type variants.  Tolerances are f32 summation
 order only: K1, K4, K5 and K6 2e-5 of max |out| (up to ~100 terms per
 output, half-spinor vs full-projector form, K6's twin at full volume), K2
-2e-6, K3 1e-6; a bf16 output of K4 one bf16 ulp of the largest output
-(2^-7 of max |out|).
+2e-6, K3 1e-6; a bf16 output of K1, K4 or K6 one bf16 ulp of the largest
+output (2^-7 of max |out|).  K1's and K6's batched launch (a block of
+fields in one launch) equals single launches exactly.
 """
 
 import pytest
@@ -267,3 +268,51 @@ def test_dslash_hop_halo_matches_twin_on_card(mesh, prec, dagger):
     assert dslash_hop_halo.launches == n0 + 3
     assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
     assert torch.equal(split, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("link_t", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("clover", [False, True])
+@pytest.mark.parametrize("dagger", [False, True])
+def test_bf16_spinor_k1_matches_twin_on_card(link_t, clover, dagger):
+    dev = cuda_device()
+    T, Z, Y, X = 4, 3, 5, 6
+    psi = torch.from_numpy(rand((T, 24, Z, Y * X), 1)).to(dev).bfloat16()
+    U = torch.from_numpy(rand((T, 4, 18, Z, Y * X), 2, 0.5)).to(dev).to(
+        link_t)
+    A = (torch.from_numpy(rand((T, 144, Z, Y * X), 3, 0.2)).to(dev).to(
+        link_t) if clover else None)
+    ref = wilson_m_plain(psi, U, A, 0.13, dagger, Y)
+    got = wilson_m(psi, U, A, 0.13, dagger, Y)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert float((got.float() - ref.float()).abs().max()) <= \
+        2.0 ** -7 * float(ref.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spinor_t", [torch.float32, torch.bfloat16])
+def test_batched_k1_and_k6_equal_single_launches_on_card(spinor_t):
+    dev = cuda_device()
+    T, Z, Y, X = 4, 2, 6, 8
+    psi = torch.from_numpy(rand((3, T, 24, Z, Y * X), 1)).to(dev).to(
+        spinor_t)
+    U = torch.from_numpy(rand((T, 4, 18, Z, Y * X), 2, 0.5)).to(dev)
+    n0 = wilson_m.launches
+    got = wilson_m(psi, U, None, 0.13, False, Y)
+    assert wilson_m.launches == n0 + 1
+    assert torch.equal(got, torch.stack([wilson_m(p, U, None, 0.13, False, Y)
+                                         for p in psi]))
+    pin = psi[..., :Y * X // 2].contiguous()
+    Uh = U[..., :Y * X // 2].contiguous()
+    n0 = parity_hop.launches
+    got = parity_hop(pin, Uh, Uh, Y, 0, True, kappa2=0.02, psi_out=pin)
+    assert parity_hop.launches == n0 + 1
+    ref = parity_hop_plain(pin, Uh, Uh, Y, 0, True, kappa2=0.02, psi_out=pin)
+    one = torch.stack([parity_hop(p, Uh, Uh, Y, 0, True, kappa2=0.02,
+                                  psi_out=p) for p in pin])
+    torch.cuda.synchronize()
+    assert torch.equal(got, one)
+    tol = 2.0 ** -7 if spinor_t == torch.bfloat16 else 2e-5
+    assert float((got.float() - ref.float()).abs().max()) <= \
+        tol * float(ref.float().abs().max())

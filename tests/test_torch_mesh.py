@@ -23,6 +23,13 @@ rank), at (X, Y, Z, T) = (4, 4, 4, 8):
   2 2, 2 2 2) also the sharded bare hop (ShardedWilsonKernel._hop and
   _hop_dag, K4-halo over the exchange) against K4's twin on the global
   field, 1e-6 of max, split and single pass bit for bit.
+* Over 2 1 also block Lanczos (the pc eigensolve CLI with
+  --eig-block-size 2: each rank applies the sharded operator to the
+  block one vector at a time) and the Krylov-Schur Arnoldi of M
+  (compute_evecs_production with EigOperator.M, smallest modulus, which
+  no CLI reaches; every inner product reduced over the ranks), each rank
+  against the port's single-device run: the same restarts, eigenvalues
+  1e-6; block Lanczos also against the JAX pc eigenvalues.
 * In process: --mesh 1 1 on one rank without a process group equals the
   single-device run exactly; the errors (NCCL with ranks sharing a card,
   odd local extents with direct-pc, --mesh with MG, bad mesh shapes).
@@ -62,15 +69,23 @@ LOOP = BASE + ["--eig-amin", "0.09", "--loop-do-nonlocal", "yes",
 PC = BASE + ["--eig-amin", "0.3", "--solve-type", "direct-pc"]
 CLOVER = ["--dslash-type", "clover", "--csw", "1.1"]
 # mesh -> jobs (name, mode); one torch.distributed.run per mesh
-LAUNCHES = {"2 1": [("loop", "loop"), ("pc", "eig")],
+LAUNCHES = {"2 1": [("loop", "loop"), ("pc", "eig"), ("block", "eig"),
+                    ("arnoldi", "arnoldi")],
             "2 2": [("loop", "loop"), ("pc-clover", "eig")],
             "2 2 2": [("loop", "loop"), ("pc", "eig")]}
 RUNS = [(m, name) for m, jobs in LAUNCHES.items() for name, _ in jobs]
+# the Arnoldi of M has no JAX reference at this size (a 6144^2 dense eig)
+JAX_RUNS = [r for r in RUNS if r[1] != "arnoldi"]
+# the unfiltered Arnoldi of M: its smallest-modulus eigenvalues
+ARNOLDI = BASE[:BASE.index("--eig-use-poly-acc")] + BASE[
+    BASE.index("--eig-poly-deg") + 2:] + ["--eig-nkr", "48"]
 
 
 def _argv(name, mom):
     loop = LOOP + ["--momenta-filename", str(mom)]
-    return {"loop": loop, "pc": PC, "pc-clover": PC + CLOVER}[name]
+    return {"loop": loop, "pc": PC, "pc-clover": PC + CLOVER,
+            "block": PC + ["--eig-block-size", "2"],
+            "arnoldi": ARNOLDI}[name]
 
 
 def _evec_file(out):
@@ -107,6 +122,7 @@ def _jax_refs():
                                                         max_restarts=500),
                                 even_odd=True)
         out[name] = (np.sort(r.evals.real), None)
+    out["block"] = out["pc"]
     return out
 
 
@@ -116,7 +132,11 @@ def _single(name, mom):
     if name == "loop":
         r = cli_loop.run(argv)
         return r.evals, r.data_mom, r.n_restarts, None
-    res, evals, _, _ = cli_eig.run(argv)
+    if name == "arnoldi":
+        from torch_mesh_worker import arnoldi
+        res, evals, _, _ = arnoldi(argv, None)
+    else:
+        res, evals, _, _ = cli_eig.run(argv)
     return evals, None, res.n_restarts, res.evecs.numpy()
 
 
@@ -150,7 +170,8 @@ def runs(tmp_path_factory):
     try:
         refs = {"jax": _jax_refs(),
                 "port": {n: _single(n, mom) for n in ("loop", "pc",
-                                                      "pc-clover")}}
+                                                      "pc-clover", "block",
+                                                      "arnoldi")}}
     finally:
         for p, _, _, log in procs.values():
             try:
@@ -170,7 +191,7 @@ def runs(tmp_path_factory):
     return got, refs
 
 
-@pytest.mark.parametrize("run", RUNS, ids=lambda r: f"{r[1]}-{r[0]}")
+@pytest.mark.parametrize("run", JAX_RUNS, ids=lambda r: f"{r[1]}-{r[0]}")
 def test_mesh_matches_jax_single_device(runs, run):
     got, refs = runs
     evals, data_mom = refs["jax"][run[1]]
@@ -192,6 +213,7 @@ def test_mesh_matches_port_single_device(runs, run):
     got, refs = runs
     evals, data_mom, restarts, _ = refs["port"][run[1]]
     for r, res in enumerate(got[run]):
+        assert bool(res["converged"]), r
         assert int(res["n_restarts"]) == restarts, r
         np.testing.assert_allclose(res["evals"], evals, rtol=1e-6)
         if data_mom is not None:
@@ -220,9 +242,11 @@ def test_mesh_bare_hop(runs, run):
                          ids=lambda r: f"{r[1]}-{r[0]}")
 def test_mesh_evecs_are_rank_blocks(runs, run):
     got, _ = runs
+    packed = 1 if run[1] == "arnoldi" else 2
     for res in got[run]:
         X, Yl, Zl, Tl = res["local_dims"]
-        assert tuple(res["evec_shape"]) == (4, Tl, 24, Zl, Yl * X // 2)
+        assert tuple(res["evec_shape"]) == (4, Tl, 24, Zl,
+                                            Yl * X // packed)
 
 
 @pytest.mark.parametrize("mesh", [m for m, jobs in LAUNCHES.items()

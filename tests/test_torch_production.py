@@ -131,16 +131,38 @@ def test_slice_hdf5_matches_jax_writer(jax_ref, port_run):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(basis_precision="bf16"),
-    dict(eig=EigParam(n_ev=2, n_kr=8, block_size=2)),
-    dict(eig=EigParam(n_ev=2, n_kr=8, operator=EigOperator.M))])
+    dict(basis_precision="bf16", mesh="1 1"),
+    dict(basis_precision="bf16", mesh="1 1",
+         eig=EigParam(n_ev=2, n_kr=8, block_size=2))])
 def test_eigensolve_options_outside_slice_raise(kw):
+    """The bf16 basis under a mesh needs bf16 halo-extended spinors in K7a
+    and K7b (ROADMAP item 7); the bf16 basis, block Lanczos and the
+    Arnoldi of M / M^dag on one device are held to the JAX package in
+    test_torch_bf16_basis.py, test_torch_block_lanczos.py and
+    test_torch_arnoldi.py."""
+    from mugiq_tpu_torch.parallel.mesh import LatticeMesh
+
     kw = dict(kw)
     eig = kw.pop("eig", EigParam(n_ev=2, n_kr=8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    kw["mesh"] = LatticeMesh((1, 1), DIMS, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
         compute_evecs_production(_gauge(), GaugeParam(dims=DIMS),
                                  InvertParam(kappa=0.13), eig, device="cpu",
                                  **kw)
+
+
+@pytest.mark.parametrize("kw, match", [
+    (dict(operator=EigOperator.M, use_poly_acc=True), "normal operator"),
+    (dict(operator=EigOperator.Mdag), "Hermitian Lanczos only")])
+def test_nonnormal_operator_errors_match_jax(kw, match):
+    """The JAX function's errors: the Chebyshev filter and the bf16 basis
+    need a normal operator (production.py:293-306)."""
+    bp = "f32" if kw.get("use_poly_acc") else "bf16"
+    with pytest.raises(ValueError, match=match):
+        compute_evecs_production(_gauge(), GaugeParam(dims=DIMS),
+                                 InvertParam(kappa=0.13),
+                                 EigParam(n_ev=2, n_kr=8, **kw),
+                                 basis_precision=bp, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [

@@ -3,8 +3,10 @@
     python -m torch.distributed.run --standalone --nproc-per-node N \\
         tests/torch_mesh_worker.py OUTDIR JOBS.json
 
-JOBS.json lists {"name", "mode" ("loop" or "eig"), "argv"} jobs whose CLI
-flags share one --mesh.  For each job the rank checks its sharded operator
+JOBS.json lists {"name", "mode" ("loop", "eig" or "arnoldi"), "argv"} jobs
+whose CLI flags share one --mesh ("arnoldi": the eigensolve CLI's flags,
+solved for EigOperator.M by production.compute_evecs_production, which no
+CLI reaches).  For each job the rank checks its sharded operator
 on a random field against the single-device operator's block of the same
 field (M, M^dag, M^dag M: the full operator for "loop", the packed one for
 "eig --solve-type direct-pc"; for "loop" also the bare hop _hop / _hop_dag
@@ -80,6 +82,22 @@ def op_check(cli, argv):
     return err, same, hop_err, mesh
 
 
+def arnoldi(argv, mesh):
+    """The Arnoldi eigensolve of M with the eigensolve CLI's flags on the
+    mesh (smallest modulus, unfiltered)."""
+    from mugiq_tpu_torch.params import EigOperator, Spectrum
+    from mugiq_tpu_torch.production import compute_evecs_production
+
+    args = cli_eig.parse_args(argv)
+    gp, ip, ep = build_params(args)
+    ep.operator, ep.spectrum, ep.use_poly_acc = (EigOperator.M, Spectrum.SM,
+                                                 False)
+    U = load_gauge_np(args.gauge, LatticeGeometry(gp.dims),
+                      seed=args.gauge_seed)
+    return compute_evecs_production(U, gp, ip, ep, seed=ep.seed, mesh=mesh,
+                                    device=args.device)
+
+
 def main():
     out = Path(sys.argv[1])
     for job in json.loads(Path(sys.argv[2]).read_text()):
@@ -90,7 +108,9 @@ def main():
             evals, sigma, resids = res.evals, res.sigma, res.resids
             data_mom, shape = res.data_mom, ()
         else:
-            res, evals, sigma, resids = cli.run(job["argv"])
+            res, evals, sigma, resids = (
+                cli.run(job["argv"]) if job["mode"] == "eig"
+                else arnoldi(job["argv"], mesh))
             data_mom, shape = np.zeros(0), tuple(res.evecs.shape)
         np.savez(out / f"{job['name']}.rank{mesh.rank}.npz",
                  evals=np.asarray(evals), sigma=np.asarray(sigma),
