@@ -7,7 +7,8 @@
 Phases (each prints its own lines and raises on failure):
   build     the card (nvidia-smi name and power limit), torch and nvcc
             versions, the kernels' build from the sources in this checkout
-            (one nvcc per source, all started together);
+            (one nvcc per source, all started together), and the registers
+            and spills of every instance of K1's and K6's kernels;
   kernels   K1-K3 against their plain PyTorch twins on the card at the
             flagship shapes (32^3x64): max error against a stated
             tolerance, kernel / twin times from CUDA events (median after
@@ -18,8 +19,8 @@ Phases (each prints its own lines and raises on failure):
             f32 and bf16 links), with times and bounds;
   bf16      K1 and K6 with bf16 spinors (bf16 in, bf16 out; f32 and bf16
             links, both daggers, Wilson and clover, every K6 pass) against
-            their twins at 32^3x64 within one bf16 ulp of max |out|; the
-            batched launch (b = 4, f32 and bf16 spinors) against four
+            their twins at 32^3x64 within one bf16 ulp of max |out|;
+            batched launches (b = 2, 3, 4, f32 and bf16 spinors) against
             single launches, exactly; times and bounds of every form;
   identity  K6 tied to K1 at 32^3x64: M_pc psi_e equals the even half of
             K1(psi_e, psi_o) with psi_o = A_oo^-1 kappa D_oe psi_e, whose
@@ -276,22 +277,33 @@ def with_flagship_gauge(args):
 
 
 def cuda_ms(fn, reps, warmup=2):
-    """Median time of fn() in ms from CUDA events, after warm-up."""
+    """Median time of one fn() call in ms from CUDA events, after warm-up.
+    With reps >= 10 (the kernels) each sample times a queue of QUEUE calls
+    back to back, so that the host's launch overhead hides behind the
+    previous launch, as on the main path, and not inside the kernel's
+    time; with fewer (the twins' calls of many launches, and chains) each
+    sample is one call."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    n = QUEUE if reps >= 10 else 1
     ts = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(n):
+            fn()
         b.record()
         b.synchronize()
-        ts.append(a.elapsed_time(b))
+        ts.append(a.elapsed_time(b) / n)
     ts.sort()
     return ts[len(ts) // 2]
+
+
+# calls in each timed queue of a kernel (cuda_ms)
+QUEUE = 10
 
 
 def bound(nbytes, flops):
@@ -343,6 +355,55 @@ def phase_build():
             f" s; ptxas: {len(regs)} kernels, {min(regs, default=0)}-"
             f"{max(regs, default=0)} registers, {spill} bytes of spill "
             f"stores")
+    say("K1/K6 instances (template arguments DAG, CLOVER, [K6 one-site "
+        "f32: pass,] K sites a thread, link, spinor; registers, spill store "
+        "and load bytes): " + json.dumps(k1_k6_instances()))
+
+
+# the sources of K1's and K6's kernels (wilson_m.cuh, parity_hop.cuh), one
+# instance group each
+K1_K6_SOURCES = tuple(f"{k}{s}" for k in ("wilson_m", "parity_hop")
+                     for s in ("", "_bf16", "_pair", "_staged",
+                               "_staged_pair"))
+
+
+def ptxas_instances(log):
+    """[(mangled kernel, registers, spill store bytes, spill load bytes)]
+    from nvcc's -Xptxas -v output."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = [m.group(1), 0, 0, 0]
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur[2], cur[3] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur[1] = int(m.group(1))
+    return out
+
+
+def k1_k6_instances():
+    """{source: [[kernel<template arguments>, registers, spill stores,
+    spill loads], ...]} of K1's and K6's sources, names demangled by
+    c++filt."""
+    from mugiq_tpu_torch.kernels import build
+    res = {}
+    for name in K1_K6_SOURCES:
+        inst = ptxas_instances(build.build_log(name))
+        names = [i[0] for i in inst]
+        if names and shutil.which("c++filt"):
+            names = subprocess.run(["c++filt"], input="\n".join(names),
+                                   capture_output=True, text=True,
+                                   check=True).stdout.splitlines()
+        res[name] = [[(re.search(r"(\w+_kernel<[^>]*>)", n) or
+                       re.search(r"(.*)", n)).group(1).replace(" ", ""),
+                      *i[1:]] for n, i in zip(names, inst)]
+    return res
 
 
 def phase_kernels(dev, stats):
@@ -571,9 +632,10 @@ def _time_forms(name, tag, fn, plain, moved, flops, stats, key, extra=""):
 
 def phase_bf16(dev, stats):
     """K1 and K6 with bf16 spinors (bf16 in, bf16 out) against their twins
-    at 32^3x64 in every variant, within one bf16 ulp of max |out|; the
-    batched launch (b = 4, f32 and bf16 spinors) against four single
-    launches, exactly; times and bounds of every form."""
+    at 32^3x64 in every variant, within one bf16 ulp of max |out|; batched
+    launches (b = 2, 3, 4; f32 and bf16 spinors) against single launches,
+    exactly; every bf16-spinor and batched form timed with its bound and
+    share."""
     import torch
     from mugiq_tpu_torch.kernels.parity import parity_hop, parity_hop_plain
     from mugiq_tpu_torch.kernels.wilson import (FLOP_PER_SITE, wilson_m,
@@ -613,22 +675,23 @@ def phase_bf16(dev, stats):
                                 nbytes(p1, Ul, out), FLOP_PER_SITE * vol,
                                 forms, key)
                 del ref, got
-    # the batched launch: one launch for b = 4 equals four single launches
+    # batched launches: one launch for b vectors equals b single launches
     for sdt in (torch.float32, bf):
         p4 = psi.to(sdt)
-        for dagger in (False, True):
-            got = wilson_m(p4, U, None, kappa, dagger, Y)
-            one = torch.stack([wilson_m(p, U, None, kappa, dagger, Y)
-                               for p in p4])
-            torch.cuda.synchronize()
-            diff = float((got.float() - one.float()).abs().max())
-            say(f"K1 wilson_m batch 4 ({str(sdt)[6:]} spinors) "
-                f"dagger={int(dagger)} vs four single launches: max abs diff "
-                f"{diff:.1e} (tol 0)")
-            if diff != 0.0:
-                raise AssertionError("K1's batched launch differs from "
-                                     "single launches")
-            del got, one
+        for b in (2, 3, 4):
+            for dagger in (False, True):
+                got = wilson_m(p4[:b], U, None, kappa, dagger, Y)
+                one = torch.stack([wilson_m(p, U, None, kappa, dagger, Y)
+                                   for p in p4[:b]])
+                torch.cuda.synchronize()
+                diff = float((got.float() - one.float()).abs().max())
+                say(f"K1 wilson_m batch {b} ({str(sdt)[6:]} spinors) "
+                    f"dagger={int(dagger)} vs {b} single launches: max abs "
+                    f"diff {diff:.1e} (tol 0)")
+                if diff != 0.0:
+                    raise AssertionError("K1's batched launch differs from "
+                                         "single launches")
+                del got, one
         out4 = torch.empty_like(p4)
         outs = [torch.empty_like(p) for p in p4]
         ms1 = cuda_ms(lambda: [wilson_m(p, U, None, kappa, False, Y, out=o)
@@ -688,25 +751,26 @@ def phase_bf16(dev, stats):
                             forms, key)
     for sdt in (torch.float32, bf):
         p4, e4 = pin.to(sdt), pe.to(sdt)
-        for tag, kw in (("pass1", {}),
-                        ("pass2", dict(kappa2=k2, psi_out=e4))):
-            po = 1 if tag == "pass1" else 0
-            for dagger in (False, True):
-                got = parity_hop(p4, Uo, Ui, Y, po, dagger, **kw)
-                one = torch.stack([
-                    parity_hop(p, Uo, Ui, Y, po, dagger,
-                               **({} if not kw else
-                                  dict(kappa2=k2, psi_out=e4[i])))
-                    for i, p in enumerate(p4)])
-                torch.cuda.synchronize()
-                diff = float((got.float() - one.float()).abs().max())
-                say(f"K6 parity_hop batch 4 ({str(sdt)[6:]} spinors) {tag} "
-                    f"dagger={int(dagger)} vs four single launches: max abs "
-                    f"diff {diff:.1e} (tol 0)")
-                if diff != 0.0:
-                    raise AssertionError("K6's batched launch differs from "
-                                         "single launches")
-                del got, one
+        for b in (2, 3, 4):
+            for tag, kw in (("pass1", {}),
+                            ("pass2", dict(kappa2=k2, psi_out=e4[:b]))):
+                po = 1 if tag == "pass1" else 0
+                for dagger in (False, True):
+                    got = parity_hop(p4[:b], Uo, Ui, Y, po, dagger, **kw)
+                    one = torch.stack([
+                        parity_hop(p, Uo, Ui, Y, po, dagger,
+                                   **({} if not kw else
+                                      dict(kappa2=k2, psi_out=e4[i])))
+                        for i, p in enumerate(p4[:b])])
+                    torch.cuda.synchronize()
+                    diff = float((got.float() - one.float()).abs().max())
+                    say(f"K6 parity_hop batch {b} ({str(sdt)[6:]} spinors) "
+                        f"{tag} dagger={int(dagger)} vs {b} single launches: "
+                        f"max abs diff {diff:.1e} (tol 0)")
+                    if diff != 0.0:
+                        raise AssertionError("K6's batched launch differs "
+                                             "from single launches")
+                    del got, one
         out4 = torch.empty_like(p4)
         outs = [torch.empty_like(p) for p in p4]
         ms1 = cuda_ms(lambda: [parity_hop(p, Uo, Ui, Y, 1, False, out=o)

@@ -2,7 +2,10 @@
 // dslash_hop.cu, K5 hop_dir.cu, K6 parity_hop.cu, K7 wilson_m_halo.cuh /
 // parity_hop_halo.cuh): the half-spinor projector tables, the one-hop
 // helper, the eight hops of one site of a full-volume field, and the
-// chiral clover-block row.
+// chiral clover-block row; and the tile helpers of the batched and bf16
+// forms of K1 and K6 (wilson_m_tile.cuh, parity_hop_tile.cuh): K
+// x-adjacent sites of one thread, NB vectors of one tile, each link read
+// once for the tile.
 //
 // Field layouts (sites minor; S is the stride between component planes,
 // the number of sites of one t-slice):
@@ -53,7 +56,7 @@ __device__ __forceinline__ float2 ipow(int k, float2 a) {
 }
 
 __device__ __forceinline__ float ldf(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
 
 // f32 -> the output type; bf16 rounds to nearest even, as XLA's astype
 __device__ __forceinline__ void stf(float* p, float v) { *p = v; }
@@ -168,6 +171,378 @@ __device__ __forceinline__ float2 clover_row(const LT* __restrict__ a, long long
     d.x += ar * w.x - ai * w.y;
     d.y += ar * w.y + ai * w.x;
   }
+  return d;
+}
+
+// ---------------------------------------------------------------------------
+// Tile helpers of K1 and K6 (wilson_m.cuh, parity_hop.cuh).  A thread
+// computes K x-adjacent sites of one vector (K = 1, or K = 2 with the
+// first x even: every aligned plane pair is one load, four bytes of bf16);
+// a block tile of vectors shares each link through shared memory.  The
+// arithmetic rounds every operation explicitly (cadd, cfma: no
+// contraction left to the compiler), so that every instance computes a
+// vector bit for bit alike, whatever its K, its staging or its batch.
+// ---------------------------------------------------------------------------
+
+// Two consecutive words p[0], p[1] of a plane in one load through the
+// read-only path (8 bytes of f32, 4 of bf16; p two-word aligned), as f32.
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+
+// Two words of the output type in one store; bf16 rounds each to nearest
+// even, as stf
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Where a thread's K sites sit in a component plane.  One: one site at o.
+// Pair2: the aligned pair o, o + 1 (o even), one load.  Split2: two sites
+// at o0 and o1 (the x neighbours of a pair, no aligned pair), two loads.
+struct One {
+  long long o;
+};
+struct Pair2 {
+  long long o;
+};
+struct Split2 {
+  long long o0, o1;
+};
+
+template <typename T>
+__device__ __forceinline__ void ldk(const T* __restrict__ p, One a, float (&v)[1]) {
+  v[0] = ldf(p + a.o);
+}
+template <typename T>
+__device__ __forceinline__ void ldk(const T* __restrict__ p, Pair2 a, float (&v)[2]) {
+  const float2 w = ld2(p + a.o);
+  v[0] = w.x;
+  v[1] = w.y;
+}
+template <typename T>
+__device__ __forceinline__ void ldk(const T* __restrict__ p, Split2 a, float (&v)[2]) {
+  v[0] = ldf(p + a.o0);
+  v[1] = ldf(p + a.o1);
+}
+template <typename T>
+__device__ __forceinline__ void stk(T* __restrict__ p, One a, const float (&v)[1]) {
+  stf(p + a.o, v[0]);
+}
+template <typename T>
+__device__ __forceinline__ void stk(T* __restrict__ p, Pair2 a, const float (&v)[2]) {
+  st2(p + a.o, v[0], v[1]);
+}
+
+// The placements of K sites: At for the sites themselves and their y, z,
+// t neighbours (aligned), Xs for their x neighbours in row zy, at columns
+// c0 (site 0) and c1 (site 1).
+template <int K>
+struct Lanes;
+template <>
+struct Lanes<1> {
+  using At = One;
+  using Xs = One;
+  static __device__ __forceinline__ At at(long long o) { return One{o}; }
+  static __device__ __forceinline__ Xs xs(long long zy, int c0, int) { return One{zy + c0}; }
+};
+template <>
+struct Lanes<2> {
+  using At = Pair2;
+  using Xs = Split2;
+  static __device__ __forceinline__ At at(long long o) { return Pair2{o}; }
+  static __device__ __forceinline__ Xs xs(long long zy, int c0, int c1) {
+    return Split2{zy + c0, zy + c1};
+  }
+};
+
+// Where the eight hops of a thread's K sites read: the sites (c) and their
+// y and z neighbours, aligned; the x neighbours (forward xf, backward xb)
+// for the spinor and for the backward link.
+template <int K>
+struct TileNbr {
+  typename Lanes<K>::At c, yp, ym, zp, zm;
+  typename Lanes<K>::Xs xf, xb;
+};
+
+// Blocks of 128 threads that ptxas must fit on one SM, which caps its
+// registers at 65536 / 128 / blocks: the one-site kernel 3 (168
+// registers), a pair 3 with bf16 links and 1 with f32 links, a block
+// tile 4 (128) with one site a thread and 3 with pairs.  Left alone,
+// ptxas takes 255 registers (two blocks) and runs slower; tighter caps
+// spill (the caps timed against each other: PERF.md section 6).
+template <int K, bool STAGED, typename LT>
+__host__ __device__ constexpr int min_blocks() {
+  if (STAGED) return K == 1 ? 4 : 3;
+  if (K == 1) return 3;
+  return sizeof(LT) == 2 ? 3 : 1;
+}
+
+// a + b and acc + u h (complex), each operation rounded once, in order
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
+}
+__device__ __forceinline__ float2 cfma(float2 u, float2 h, float2 acc) {
+  return make_float2(__fmaf_rn(-u.y, h.y, __fmaf_rn(u.x, h.x, acc.x)),
+                     __fmaf_rn(u.y, h.x, __fmaf_rn(u.x, h.y, acc.y)));
+}
+
+// The half spinor Q' psi of one vector at K sites (hop's first step): the
+// neighbour spinor at ps, each pair of spin planes added in exact rounding.
+template <int MU, int F, int K, typename PT, typename L>
+__device__ __forceinline__ void project_k(const PT* __restrict__ p, L ps, long long S,
+                                          float2 (&h)[K][2][3]) {
+  constexpr ProjTab P = proj_tab(MU, F);
+#pragma unroll
+  for (int hs = 0; hs < 2; ++hs) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float ar[K], ai[K], br[K], bi[K];
+      ldk(p + (long long)(P.qs[hs][0] * 3 + c) * S, ps, ar);
+      ldk(p + (long long)(12 + P.qs[hs][0] * 3 + c) * S, ps, ai);
+      ldk(p + (long long)(P.qs[hs][1] * 3 + c) * S, ps, br);
+      ldk(p + (long long)(12 + P.qs[hs][1] * 3 + c) * S, ps, bi);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        h[k][hs][c] = cadd(ipow(P.qk[hs][0], make_float2(ar[k], ai[k])),
+                           ipow(P.qk[hs][1], make_float2(br[k], bi[k])));
+    }
+  }
+}
+
+// Row a of the link times the half spinor, g[hs][a] = sum_b ua_a[b] h[hs][b]
+template <int K>
+__device__ __forceinline__ void mul_row(const float2 (&ua)[K][3], const float2 (&h)[K][2][3],
+                                        int a, float2 (&g)[K][2][3]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int hs = 0; hs < 2; ++hs) {
+      float2 s = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int b = 0; b < 3; ++b) s = cfma(ua[k][b], h[k][hs][b], s);
+      g[k][hs][a] = s;
+    }
+  }
+}
+
+// acc += R' g, the reconstruction (exact rounding)
+template <int MU, int F, int K>
+__device__ __forceinline__ void recon_k(const float2 (&g)[K][2][3], float2 (&acc)[K][4][3]) {
+  constexpr ProjTab P = proj_tab(MU, F);
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) acc[k][s][c] = cadd(acc[k][s][c], ipow(P.rk[s], g[k][P.rh[s]][c]));
+}
+
+// Row a of the link of one hop at K sites, U[a][b], or conj(U[b][a]) for
+// the adjoint link, as hop reads it.
+template <bool UDAG, int K, typename LT, typename L>
+__device__ __forceinline__ void link_row_k(const LT* __restrict__ u, L at, long long S, int a,
+                                           float2 (&ua)[K][3]) {
+#pragma unroll
+  for (int b = 0; b < 3; ++b) {
+    const int e = UDAG ? (b * 3 + a) : (a * 3 + b);
+    float re[K], im[K];
+    ldk(u + (long long)e * S, at, re);
+    ldk(u + (long long)(9 + e) * S, at, im);
+#pragma unroll
+    for (int k = 0; k < K; ++k) ua[k][b] = make_float2(re[k], UDAG ? -im[k] : im[k]);
+  }
+}
+
+// One directed hop of one vector at K sites, acc += R' U Q' psi: the
+// neighbour spinor (at ps) projected to a half spinor, multiplied by the
+// link row by row (row(a, ua_a) gives row a) and reconstructed, hop's
+// steps in exact rounding.
+template <int MU, int F, int K, typename PT, typename L, typename R>
+__device__ __forceinline__ void apply_k(const PT* __restrict__ p, L ps, long long S, R row,
+                                        float2 (&acc)[K][4][3]) {
+  float2 h[K][2][3], g[K][2][3];
+  project_k<MU, F, K>(p, ps, S, h);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float2 ua[K][3];
+    row(a, ua);
+    mul_row<K>(ua, h, a, g);
+  }
+  recon_k<MU, F, K>(g, acc);
+}
+
+// Where the link of hop H (0-7: x, y, z, t, forward before backward,
+// hop8's order) is read at the thread's K sites, and its row a: from uf
+// at the sites for the forward hops, from ub at the neighbours for the
+// backward ones (utm: the t-links of slice t-1).
+template <int H, int K, typename LT>
+__device__ __forceinline__ void hop_link_row(const LT* __restrict__ uf,
+                                             const LT* __restrict__ ub,
+                                             const LT* __restrict__ utm, long long S,
+                                             const TileNbr<K>& n, int a, float2 (&ua)[K][3]) {
+  const long long u_mu = 18 * S;
+  if constexpr (H == 0) link_row_k<false, K>(uf, n.c, S, a, ua);
+  else if constexpr (H == 1) link_row_k<true, K>(ub, n.xb, S, a, ua);
+  else if constexpr (H == 2) link_row_k<false, K>(uf + u_mu, n.c, S, a, ua);
+  else if constexpr (H == 3) link_row_k<true, K>(ub + u_mu, n.ym, S, a, ua);
+  else if constexpr (H == 4) link_row_k<false, K>(uf + 2 * u_mu, n.c, S, a, ua);
+  else if constexpr (H == 5) link_row_k<true, K>(ub + 2 * u_mu, n.zm, S, a, ua);
+  else if constexpr (H == 6) link_row_k<false, K>(uf + 3 * u_mu, n.c, S, a, ua);
+  else link_row_k<true, K>(utm, n.c, S, a, ua);
+}
+
+// acc += hop H of one vector at K sites (pc / pp / pm: comp 0 of its
+// spinor t-slices t, t+1, t-1), the link's rows from row(a, ua_a); DAG
+// swaps the projectors.
+template <int H, bool DAG, int K, typename PT, typename R>
+__device__ __forceinline__ void hop_apply(const PT* __restrict__ pc, const PT* __restrict__ pp,
+                                          const PT* __restrict__ pm, long long S,
+                                          const TileNbr<K>& n, R row, float2 (&acc)[K][4][3]) {
+  // forward hops use 'fwd' (1 - g) for D and 'bwd' (1 + g) for D^dag
+  constexpr int F = (H % 2 == 0) == DAG ? 1 : 0;
+  if constexpr (H == 0) apply_k<0, F, K>(pc, n.xf, S, row, acc);
+  else if constexpr (H == 1) apply_k<0, F, K>(pc, n.xb, S, row, acc);
+  else if constexpr (H == 2) apply_k<1, F, K>(pc, n.yp, S, row, acc);
+  else if constexpr (H == 3) apply_k<1, F, K>(pc, n.ym, S, row, acc);
+  else if constexpr (H == 4) apply_k<2, F, K>(pc, n.zp, S, row, acc);
+  else if constexpr (H == 5) apply_k<2, F, K>(pc, n.zm, S, row, acc);
+  else if constexpr (H == 6) apply_k<3, F, K>(pp, n.c, S, row, acc);
+  else apply_k<3, F, K>(pm, n.c, S, row, acc);
+}
+
+template <int K>
+__device__ __forceinline__ void zero_acc(float2 (&acc)[K][4][3]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) acc[k][s][c] = make_float2(0.f, 0.f);
+}
+
+// The eight hops of one vector at K sites, each link read from memory
+// row by row (one vector per thread, the batch in the grid's y dimension).
+template <bool DAG, int K, typename PT, typename LT>
+__device__ __forceinline__ void hop8_direct(const PT* __restrict__ pc, const PT* __restrict__ pp,
+                                            const PT* __restrict__ pm,
+                                            const LT* __restrict__ uf,
+                                            const LT* __restrict__ ub,
+                                            const LT* __restrict__ utm, long long S,
+                                            const TileNbr<K>& n, float2 (&acc)[K][4][3]) {
+  zero_acc<K>(acc);
+#define MUGIQ_HOP(H)                                                               \
+  hop_apply<H, DAG, K>(pc, pp, pm, S, n, [&](int a, float2(&ua)[K][3]) {           \
+    hop_link_row<H, K>(uf, ub, utm, S, n, a, ua);                                  \
+  }, acc);
+  MUGIQ_HOP(0) MUGIQ_HOP(1) MUGIQ_HOP(2) MUGIQ_HOP(3)
+  MUGIQ_HOP(4) MUGIQ_HOP(5) MUGIQ_HOP(6) MUGIQ_HOP(7)
+#undef MUGIQ_HOP
+}
+
+// Shared links of a block tile: float2 sm[8 hops][9 entries][BSK sites],
+// entry a*3 + b of the (adjoint, for backward hops) link as hop_link reads
+// it.  The thread of vector row ty stages hops ty, ty + NV, ... at its own
+// K sites (j0 = its first site in the block); every row then reads all
+// eight.
+template <int H, int K, typename LT>
+__device__ __forceinline__ void stage_one(const LT* __restrict__ uf, const LT* __restrict__ ub,
+                                          const LT* __restrict__ utm, long long S,
+                                          const TileNbr<K>& n, float2* sm, int j0, int BSK) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float2 ua[K][3];
+    hop_link_row<H, K>(uf, ub, utm, S, n, a, ua);
+#pragma unroll
+    for (int b = 0; b < 3; ++b)
+#pragma unroll
+      for (int k = 0; k < K; ++k) sm[(H * 9 + a * 3 + b) * BSK + j0 + k] = ua[k][b];
+  }
+}
+
+template <int K, int NV, typename LT>
+__device__ __forceinline__ void stage_links(const LT* __restrict__ uf, const LT* __restrict__ ub,
+                                            const LT* __restrict__ utm, long long S,
+                                            const TileNbr<K>& n, float2* sm, int j0, int BSK,
+                                            int ty) {
+#pragma unroll
+  for (int r = 0; r < 8 / NV; ++r) {
+    switch (ty + r * NV) {
+      case 0: stage_one<0, K>(uf, ub, utm, S, n, sm, j0, BSK); break;
+      case 1: stage_one<1, K>(uf, ub, utm, S, n, sm, j0, BSK); break;
+      case 2: stage_one<2, K>(uf, ub, utm, S, n, sm, j0, BSK); break;
+      case 3: stage_one<3, K>(uf, ub, utm, S, n, sm, j0, BSK); break;
+      case 4: stage_one<4, K>(uf, ub, utm, S, n, sm, j0, BSK); break;
+      case 5: stage_one<5, K>(uf, ub, utm, S, n, sm, j0, BSK); break;
+      case 6: stage_one<6, K>(uf, ub, utm, S, n, sm, j0, BSK); break;
+      default: stage_one<7, K>(uf, ub, utm, S, n, sm, j0, BSK); break;
+    }
+  }
+}
+
+// The eight hops of one vector at K sites with the block's staged links.
+template <bool DAG, int K, typename PT>
+__device__ __forceinline__ void hop8_staged(const PT* __restrict__ pc, const PT* __restrict__ pp,
+                                            const PT* __restrict__ pm, long long S,
+                                            const TileNbr<K>& n, const float2* sm, int j0,
+                                            int BSK, float2 (&acc)[K][4][3]) {
+  zero_acc<K>(acc);
+#define MUGIQ_HOP(H)                                                               \
+  hop_apply<H, DAG, K>(pc, pp, pm, S, n, [&](int a, float2(&ua)[K][3]) {           \
+    _Pragma("unroll") for (int b = 0; b < 3; ++b)                                  \
+        _Pragma("unroll") for (int k = 0; k < K; ++k)                              \
+            ua[k][b] = sm[(H * 9 + a * 3 + b) * BSK + j0 + k];                     \
+  }, acc);
+  MUGIQ_HOP(0) MUGIQ_HOP(1) MUGIQ_HOP(2) MUGIQ_HOP(3)
+  MUGIQ_HOP(4) MUGIQ_HOP(5) MUGIQ_HOP(6) MUGIQ_HOP(7)
+#undef MUGIQ_HOP
+}
+
+// Row (s, c) of the chiral clover block at K sites, row[k][j] =
+// A[chi][(s % 2)*3 + c][j] (the words clover_row reads).
+template <int K, typename LT, typename L>
+__device__ __forceinline__ void clover_row_k(const LT* __restrict__ a, L at, long long S, int s,
+                                             int c, float2 (&row)[K][6]) {
+  const int chi = s / 2, k = (s % 2) * 3 + c;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const int idx = ((chi * 6 + k) * 6 + j) * 2;
+    float re[K], im[K];
+    ldk(a + (long long)idx * S, at, re);
+    ldk(a + (long long)(idx + 1) * S, at, im);
+#pragma unroll
+    for (int q = 0; q < K; ++q) row[q][j] = make_float2(re[q], im[q]);
+  }
+}
+
+// The six spinor words (2 chi + j / 3, j % 3), chi = s / 2, of one vector
+// at K sites: w[k][j].
+template <int K, typename PT, typename L>
+__device__ __forceinline__ void chiral_k(const PT* __restrict__ p, L at, long long S, int s,
+                                         float2 (&w)[K][6]) {
+  const int chi = s / 2;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const int sc = (2 * chi + j / 3) * 3 + j % 3;
+    float re[K], im[K];
+    ldk(p + (long long)sc * S, at, re);
+    ldk(p + (long long)(12 + sc) * S, at, im);
+#pragma unroll
+    for (int q = 0; q < K; ++q) w[q][j] = make_float2(re[q], im[q]);
+  }
+}
+
+// A loaded clover row times six spinor words, sum_j row[j] w[j], in exact
+// rounding.
+__device__ __forceinline__ float2 row_dot(const float2 (&row)[6], const float2 (&w)[6]) {
+  float2 d = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int j = 0; j < 6; ++j) d = cfma(row[j], w[j], d);
   return d;
 }
 

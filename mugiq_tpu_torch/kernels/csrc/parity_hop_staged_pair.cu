@@ -1,0 +1,18 @@
+// K6, a batch of bf16 spinors in block tiles of four vectors sharing staged
+// links, two adjacent packed columns a thread: the C entry point over parity_hop.cuh (the kernels;
+// the design notes are in parity_hop.cu).
+
+#include "parity_hop.cuh"
+
+// Returns the cudaError_t of the launch (0 = success); mode 0-3 as in
+// parity_hop.cu.  psi_in, psi_out and out hold `batch` fields of bf16
+// spinors.
+extern "C" int mugiq_parity_hop_staged_pair(const void* psi_in, const void* Uo, const void* Ui,
+              const void* Apost, const void* psi_out, const void* Acomb,
+              void* out, int T, int Z, int Y, int Xh, int parity_out,
+              int dagger, int mode, float kappa2, int link_bf16, int batch,
+              void* stream) {
+  return parity_hop_entry<2, true, __nv_bfloat16>(psi_in, Uo, Ui, Apost, psi_out, Acomb,
+                                   out, T, Z, Y, Xh, parity_out, dagger, mode,
+                                   kappa2, link_bf16, batch, stream);
+}

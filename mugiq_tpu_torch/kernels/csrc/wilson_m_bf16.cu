@@ -1,0 +1,16 @@
+// K1, bf16 spinors, one site a thread, the batch in grid y (X odd, or a
+// base not four-byte aligned, where wilson_m_pair.cu cannot run): the C
+// entry point over wilson_m.cuh (the kernels; the design notes are in
+// wilson_m.cu).
+
+#include "wilson_m.cuh"
+
+// Returns the cudaError_t of the launch (0 = success).  psi and out hold
+// `batch` fields of bf16 spinors.
+extern "C" int mugiq_wilson_m_bf16(const void* psi, const void* U, const void* A,
+              void* out, int T, int Z, int Y, int X, float kappa,
+              int dagger, int clover, int link_bf16, int batch,
+              void* stream) {
+  return wilson_m_entry<1, false, __nv_bfloat16>(psi, U, A, out, T, Z, Y, X, kappa,
+                                   dagger, clover, link_bf16, batch, stream);
+}

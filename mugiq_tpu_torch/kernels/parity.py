@@ -1,8 +1,10 @@
 """K6: the packed even-odd parity hop on half-volume fields.
 
-:func:`parity_hop` launches the CUDA kernel ``csrc/parity_hop.cu`` for
-CUDA tensors and runs its plain PyTorch twin :func:`parity_hop_plain` for
-CPU tensors; any other device raises.  The kernel replaces the TPU kernel
+:func:`parity_hop` launches the CUDA kernel ``csrc/parity_hop.cu`` (or
+its pair and block-tile sources, chosen by ``wilson.launch_plan``;
+kernels in ``csrc/parity_hop.cuh``) for CUDA tensors and runs its
+plain PyTorch twin :func:`parity_hop_plain` for CPU tensors; any other
+device raises.  The kernel replaces the TPU kernel
 ``mugiq_tpu/pallas/schur_kernel.py`` ``parity_hop_pallas`` (:350), and
 its vmap over a block: f32 or bf16 spinors (the output in psi_in's
 dtype), one field or a batch of them in one launch.  It is
@@ -19,25 +21,32 @@ import ctypes
 import torch
 
 from . import build
-from .wilson import (SPINOR_DTYPES, batch_shape, clover_apply_plain,
-                     dslash_hop_plain)
+from .wilson import (SPINOR_DTYPES, aligned_pairs, batch_shape,
+                     clover_apply_plain, dslash_hop_plain, launch_plan)
 
-_fn = None
+_fn = {}
 
 #: kernel modes of csrc/parity_hop.cu
 _HOP, _POST, _COMB, _COMB_CLOVER = 0, 1, 2, 3
 
 
-def _entry():
-    global _fn
-    if _fn is None:
-        fn = build.load("parity_hop").mugiq_parity_hop
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                       ctypes.c_float, I, I, I, P]
-        fn.restype = I
-        _fn = fn
-    return _fn
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: the C entry points of K6's sources: psi_in, U_out, U_in, A_post,
+#: psi_out, A_comb, out, T, Z, Y, Xh, parity_out, dagger, mode, kappa2,
+#: link_bf16, batch, stream
+ENTRY_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                  ctypes.c_float, _I, _I, _P]
+
+
+def _entry(name: str):
+    """The C entry point of ``csrc/<name>.cu``, one of K6's sources
+    (wilson.LaunchPlan.source)."""
+    if name not in _fn:
+        fn = getattr(build.load(name), f"mugiq_{name}")
+        fn.argtypes = ENTRY_ARGTYPES
+        fn.restype = ctypes.c_int
+        _fn[name] = fn
+    return _fn[name]
 
 
 def _mode(kappa2, psi_out, A_post, A_comb) -> int:
@@ -153,14 +162,16 @@ def parity_hop(psi_in, U_out, U_in, Y: int, parity_out: int, dagger: bool,
         return None if a is None else a.data_ptr()
 
     bf = torch.bfloat16
+    b = psi_in.shape[0] if psi_in.ndim == 5 else 1
+    plan = launch_plan(b, Xh, psi_in.dtype == bf,
+                       aligned_pairs(psi_in, U_out, U_in, A_post, psi_out,
+                                     A_comb, out))
     with torch.cuda.device(dev):
-        rc = _entry()(psi_in.data_ptr(), U_out.data_ptr(), U_in.data_ptr(),
-                      ptr(A_post), ptr(psi_out), ptr(A_comb), out.data_ptr(),
-                      T, Z, Y, Xh, int(parity_out), int(dagger), mode,
-                      float(kappa2 or 0.0), int(U_out.dtype == bf),
-                      int(psi_in.dtype == bf),
-                      psi_in.shape[0] if psi_in.ndim == 5 else 1,
-                      build.stream_handle(dev))
+        rc = _entry(plan.source("parity_hop"))(
+            psi_in.data_ptr(), U_out.data_ptr(), U_in.data_ptr(),
+            ptr(A_post), ptr(psi_out), ptr(A_comb), out.data_ptr(), T, Z, Y,
+            Xh, int(parity_out), int(dagger), mode, float(kappa2 or 0.0),
+            int(U_out.dtype == bf), b, build.stream_handle(dev))
     build.check(rc, "parity_hop")
     parity_hop.launches += 1
     return out

@@ -1,8 +1,10 @@
 """The Wilson stencil kernels on the kernel layout.
 
-* K1 :func:`wilson_m` (``csrc/wilson_m.cu``): the fused Wilson(-clover)
-  operator M / M^dag, f32 or bf16 spinors (the output in psi's dtype),
-  one field or a batch of them in one launch; replaces
+* K1 :func:`wilson_m` (``csrc/wilson_m.cu`` and its pair and block-tile
+  sources, chosen by :func:`launch_plan`; kernels in ``csrc/wilson_m.cuh``):
+  the fused Wilson(-clover) operator M / M^dag,
+  f32 or bf16 spinors (the output in psi's dtype), one field or a batch
+  of them in one launch; replaces
   ``mugiq_tpu/pallas/dslash_kernel.py`` ``wilson_m_pallas`` (:395) and
   ``wilson_m_pallas_gl`` (:747), and their vmap over a block.
 * K4 :func:`dslash_hop` (``csrc/dslash_hop.cu``): the bare hopping term
@@ -19,6 +21,7 @@ sources for their design.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -28,23 +31,66 @@ from . import build
 #: Wilson hopping term flop count per site (8 hops, half-spinor form)
 FLOP_PER_SITE = 1320
 
-_fn = None
+_fn = {}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: the C entry points of K1's sources: psi, U, A, out, T, Z, Y, X, kappa,
+#: dagger, clover, link_bf16, batch, stream
+ENTRY_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I,
+                  _I, _I, _P]
 
 
-def _entry():
-    global _fn
-    if _fn is None:
-        fn = build.load("wilson_m").mugiq_wilson_m
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, I, I, I, I, ctypes.c_float, I, I, I, I,
-                       I, P]
-        fn.restype = I
-        _fn = fn
-    return _fn
+def _entry(name: str):
+    """The C entry point of ``csrc/<name>.cu``, one of K1's sources
+    (LaunchPlan.source)."""
+    if name not in _fn:
+        fn = getattr(build.load(name), f"mugiq_{name}")
+        fn.argtypes = ENTRY_ARGTYPES
+        fn.restype = ctypes.c_int
+        _fn[name] = fn
+    return _fn[name]
 
 
 #: spinor dtypes of K1 and K6 (the output takes the input's)
 SPINOR_DTYPES = (torch.float32, torch.bfloat16)
+
+
+class LaunchPlan(NamedTuple):
+    """Which instance of K1 or K6 runs a call (one launch)."""
+    spinor_bf16: bool
+    #: two x-adjacent sites a thread, bf16 planes read four bytes at a time
+    pair: bool
+    #: block tiles of vectors that share the staged links (the kernel
+    #: tiles the batch); else one vector a thread, the batch in grid y
+    tiled: bool
+
+    def source(self, kernel: str) -> str:
+        """The kernel source (``csrc/<source>.cu``) that runs the plan."""
+        if self.tiled:
+            return f"{kernel}_staged" + ("_pair" if self.pair else "")
+        if self.pair:
+            return f"{kernel}_pair"
+        return kernel + ("_bf16" if self.spinor_bf16 else "")
+
+
+def launch_plan(batch: int, x_extent: int, spinor_bf16: bool,
+                aligned: bool) -> LaunchPlan:
+    """The launch of a K1 call (x_extent = X) or a K6 call (x_extent =
+    Xh) of `batch` vectors: pairs for bf16 spinors where x_extent is even
+    and every operand's base is two words aligned; block tiles for a
+    batch (of pairs, for bf16); one vector a thread for a single vector
+    and for bf16 spinors that cannot pair."""
+    if batch < 1:
+        raise ValueError(f"empty batch: {batch}")
+    pair = spinor_bf16 and x_extent % 2 == 0 and aligned
+    tiled = batch > 1 and (pair or not spinor_bf16)
+    return LaunchPlan(bool(spinor_bf16), pair, tiled)
+
+
+def aligned_pairs(*ts) -> bool:
+    """Every tensor's base two words aligned (the pair form's loads)."""
+    return all(t.data_ptr() % (2 * t.element_size()) == 0
+               for t in ts if t is not None)
 
 
 def batch_shape(psi, what: str):
@@ -152,7 +198,8 @@ def wilson_m(psi, U, A144, kappa: float, dagger: bool, Y: int, out=None):
     in psi's dtype, f32 arithmetic; a batch is one launch); U
     [T, 4, 18, Z, Y*X] phased links, f32 or bf16; A144 [T, 144, Z, Y*X]
     clover chiral blocks of U's dtype, or None for Wilson.  CUDA tensors
-    launch the kernel, CPU tensors run the twin.
+    launch the kernel (launch_plan picks its instance), CPU tensors run
+    the twin.
     """
     if psi.device.type == "cpu":
         res = wilson_m_plain(psi, U, A144, kappa, dagger, Y)
@@ -174,12 +221,14 @@ def wilson_m(psi, U, A144, kappa: float, dagger: bool, Y: int, out=None):
     if out.data_ptr() == psi.data_ptr():
         raise ValueError("wilson_m: out must not alias psi (neighbour reads)")
     bf = torch.bfloat16
+    plan = launch_plan(b, YX // Y, psi.dtype == bf,
+                       aligned_pairs(psi, U, A144, out))
     with torch.cuda.device(dev):
-        rc = _entry()(psi.data_ptr(), U.data_ptr(),
-                      None if A144 is None else A144.data_ptr(),
-                      out.data_ptr(), T, Z, Y, YX // Y, float(kappa),
-                      int(dagger), int(A144 is not None), int(U.dtype == bf),
-                      int(psi.dtype == bf), b, build.stream_handle(dev))
+        rc = _entry(plan.source("wilson_m"))(
+            psi.data_ptr(), U.data_ptr(),
+            None if A144 is None else A144.data_ptr(), out.data_ptr(), T, Z,
+            Y, YX // Y, float(kappa), int(dagger), int(A144 is not None),
+            int(U.dtype == bf), b, build.stream_handle(dev))
     build.check(rc, "wilson_m")
     wilson_m.launches += 1
     return out

@@ -15,7 +15,10 @@ order only: K1, K4, K5 and K6 2e-5 of max |out| (up to ~100 terms per
 output, half-spinor vs full-projector form, K6's twin at full volume), K2
 2e-6, K3 1e-6; a bf16 output of K1, K4 or K6 one bf16 ulp of the largest
 output (2^-7 of max |out|).  K1's and K6's batched launch (a block of
-fields in one launch) equals single launches exactly.
+fields in one launch) equals single launches exactly, for every batch
+size the tiles cover (a partial last tile too), every spinor and link
+type and every mode; bf16 pairs and the one-site instance where pairs
+are illegal (odd X, a misaligned base) are held to their twins.
 """
 
 import pytest
@@ -316,3 +319,139 @@ def test_batched_k1_and_k6_equal_single_launches_on_card(spinor_t):
     tol = 2.0 ** -7 if spinor_t == torch.bfloat16 else 2e-5
     assert float((got.float() - ref.float()).abs().max()) <= \
         tol * float(ref.float().abs().max())
+
+
+BATCHES = [1, 2, 3, 4, 5, 8]
+DT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _close(got, ref, spinor_t):
+    tol = 2.0 ** -7 if spinor_t == "bf16" else 2e-5
+    return float((got.float() - ref.float()).abs().max()) <= \
+        tol * float(ref.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("spinor_t", ["f32", "bf16"])
+@pytest.mark.parametrize("link_t", ["f32", "bf16"])
+@pytest.mark.parametrize("clover", [False, True])
+@pytest.mark.parametrize("dagger", [False, True])
+def test_k1_tiles_equal_single_launches_on_card(b, spinor_t, link_t, clover,
+                                                dagger):
+    """A batch (block tiles of four vectors, f32 or paired bf16, a partial
+    last tile) equals single launches bit for bit and the twin within its
+    tolerance; X even with odd Y and Z, so bf16 pairs wrap at row ends."""
+    dev = cuda_device()
+    T, Z, Y, X = 4, 3, 5, 6
+    psi = torch.from_numpy(rand((b, T, 24, Z, Y * X), 1)).to(dev).to(
+        DT[spinor_t])
+    U = torch.from_numpy(rand((T, 4, 18, Z, Y * X), 2, 0.5)).to(dev).to(
+        DT[link_t])
+    A = (torch.from_numpy(rand((T, 144, Z, Y * X), 3, 0.2)).to(dev).to(
+        DT[link_t]) if clover else None)
+    n0 = wilson_m.launches
+    got = wilson_m(psi, U, A, 0.13, dagger, Y)
+    assert wilson_m.launches == n0 + 1
+    one = torch.stack([wilson_m(p, U, A, 0.13, dagger, Y) for p in psi])
+    ref = wilson_m_plain(psi, U, A, 0.13, dagger, Y)
+    torch.cuda.synchronize()
+    assert torch.equal(got, one)
+    assert _close(got, ref, spinor_t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", BATCHES)
+@pytest.mark.parametrize("spinor_t", ["f32", "bf16"])
+@pytest.mark.parametrize("link_t", ["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["hop", "post", "comb", "comb_clover"])
+@pytest.mark.parametrize("dagger", [False, True])
+def test_k6_tiles_equal_single_launches_on_card(b, spinor_t, link_t, mode,
+                                                dagger):
+    """K6, every mode: a batch equals single launches bit for bit and the
+    twin within its tolerance (Xh = 4: both pair offsets)."""
+    dev = cuda_device()
+    T, Z, Y, Xh = 4, 2, 6, 4
+    sdt, ldt = DT[spinor_t], DT[link_t]
+    psi = torch.from_numpy(rand((b, T, 24, Z, Y * Xh), 1)).to(dev).to(sdt)
+    pe = torch.from_numpy(rand((b, T, 24, Z, Y * Xh), 5)).to(dev).to(sdt)
+    Uo = torch.from_numpy(rand((T, 4, 18, Z, Y * Xh), 2, 0.5)).to(dev).to(ldt)
+    Ui = torch.from_numpy(rand((T, 4, 18, Z, Y * Xh), 3, 0.5)).to(dev).to(ldt)
+    A = torch.from_numpy(rand((T, 144, Z, Y * Xh), 4, 0.2)).to(dev).to(ldt)
+
+    def kw(i=None):
+        e = pe if i is None else pe[i]
+        return {"hop": {}, "post": dict(A_post=A),
+                "comb": dict(kappa2=0.0169, psi_out=e),
+                "comb_clover": dict(kappa2=0.0169, psi_out=e,
+                                    A_comb=A)}[mode]
+
+    po = 1 if mode in ("hop", "post") else 0
+    n0 = parity_hop.launches
+    got = parity_hop(psi, Uo, Ui, Y, po, dagger, **kw())
+    assert parity_hop.launches == n0 + 1
+    one = torch.stack([parity_hop(p, Uo, Ui, Y, po, dagger, **kw(i))
+                       for i, p in enumerate(psi)])
+    ref = parity_hop_plain(psi, Uo, Ui, Y, po, dagger, **kw())
+    torch.cuda.synchronize()
+    assert torch.equal(got, one)
+    assert _close(got, ref, spinor_t)
+
+
+def _misaligned(a):
+    """A copy of `a` whose base is one element past a four-byte boundary."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    v = buf[1:].view(a.shape)
+    v.copy_(a)
+    return v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["x2", "odd_x", "misaligned"])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("clover", [False, True])
+def test_k1_bf16_pair_and_one_site_on_card(case, b, clover):
+    """bf16 spinors: pairs at X = 2 (both x wraps inside one pair), and the
+    one-site instance where pairs are illegal (X = 5; a base two bytes off
+    a four-byte boundary), each within one bf16 ulp of the twin."""
+    from mugiq_tpu_torch.kernels.wilson import aligned_pairs, launch_plan
+    dev = cuda_device()
+    T, Z, Y = 4, 3, 5
+    X = {"x2": 2, "odd_x": 5, "misaligned": 6}[case]
+    psi = torch.from_numpy(rand((b, T, 24, Z, Y * X), 1)).to(dev).bfloat16()
+    U = torch.from_numpy(rand((T, 4, 18, Z, Y * X), 2, 0.5)).to(dev).bfloat16()
+    A = (torch.from_numpy(rand((T, 144, Z, Y * X), 3, 0.2)).to(dev)
+         .bfloat16() if clover else None)
+    if case == "misaligned":
+        psi = _misaligned(psi)
+    plan = launch_plan(b, X, True, aligned_pairs(psi, U, A))
+    assert plan.pair == (case == "x2")
+    got = wilson_m(psi, U, A, 0.13, False, Y)
+    one = torch.stack([wilson_m(p, U, A, 0.13, False, Y) for p in psi])
+    ref = wilson_m_plain(psi, U, A, 0.13, False, Y)
+    torch.cuda.synchronize()
+    assert torch.equal(got, one)
+    assert _close(got, ref, "bf16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["hop", "comb_clover"])
+def test_k6_bf16_one_site_misaligned_on_card(mode):
+    """K6 with a bf16 base two bytes off a four-byte boundary takes the
+    one-site instance, within one bf16 ulp of the twin."""
+    dev = cuda_device()
+    T, Z, Y, Xh = 4, 2, 6, 4
+    psi = _misaligned(torch.from_numpy(rand((T, 24, Z, Y * Xh), 1)).to(dev)
+                      .bfloat16())
+    pe = torch.from_numpy(rand((T, 24, Z, Y * Xh), 5)).to(dev).bfloat16()
+    Uo = torch.from_numpy(rand((T, 4, 18, Z, Y * Xh), 2, 0.5)).to(dev)
+    Ui = torch.from_numpy(rand((T, 4, 18, Z, Y * Xh), 3, 0.5)).to(dev)
+    A = torch.from_numpy(rand((T, 144, Z, Y * Xh), 4, 0.2)).to(dev)
+    kw = ({} if mode == "hop"
+          else dict(kappa2=0.0169, psi_out=pe, A_comb=A))
+    po = 1 if mode == "hop" else 0
+    got = parity_hop(psi, Uo, Ui, Y, po, False, **kw)
+    ref = parity_hop_plain(psi, Uo, Ui, Y, po, False, **kw)
+    torch.cuda.synchronize()
+    assert _close(got, ref, "bf16")
+
