@@ -16,17 +16,18 @@ halo-extended kernels (K7a, K7b):
         -m mugiq_tpu_torch.cli.eigensolve ... --solve-type direct-pc \
         --mesh 2 1
 
---basis-precision bf16 stores the Krylov basis in bf16 (one device);
+--basis-precision bf16 stores the Krylov basis in bf16, on one device
+and under --mesh (K7a or K7b then take bf16 spinors);
 --eig-block-size B > 1 runs block Lanczos with one batched launch per
-block step.
+block step (under --mesh, one vector at a time).
 
 The parser defines every flag of the JAX CLI with its choices and
 default, so each of its production invocations parses here.  The port
 has only the production path (--production is accepted); --platform,
 --compile-cache and --autotune drive JAX-only machinery and are logged
 with no other effect; the MG group parses, and --mugiq-use-mg yes (the
-JAX API's MG eigensolve), --prec double and --basis-precision bf16 with
---mesh raise NotImplementedError naming their ROADMAP item.
+JAX API's MG eigensolve) and --prec double raise NotImplementedError
+naming their ROADMAP item.
 """
 
 import argparse
@@ -66,9 +67,6 @@ def run(argv=None):
         not_ported("--mugiq-use-mg yes (the MG eigensolve of the JAX API)",
                    "item 9")
     check_prec(args)
-    if args.basis_precision == "bf16" and args.mesh is not None:
-        not_ported("--basis-precision bf16 with --mesh (bf16 halo-extended "
-                   "spinors in K7a and K7b)", "item 7")
 
     from ..io.gauge_io import load_evecs, load_gauge_np, plaquette, save_evecs
     from ..lattice import LatticeGeometry

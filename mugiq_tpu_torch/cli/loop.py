@@ -22,7 +22,13 @@ a card per rank; gloo on the CPU or when ranks share a card):
     python -m torch.distributed.run --standalone --nproc-per-node 2 \
         -m mugiq_tpu_torch.cli.loop --dims 8 8 8 16 ... --mesh 2 1
 
---basis-precision bf16 stores the Krylov basis in bf16 (one device);
+--basis-precision bf16 stores the Krylov basis in bf16, on one device
+and under --mesh (the halo kernels then take bf16 spinors):
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m mugiq_tpu_torch.cli.loop --dims 32 32 32 64 ... \
+        --link-precision bf16 --basis-precision bf16 --mesh 2 1
+
 --eig-block-size B > 1 runs block Lanczos.
 
 The parser defines every flag of the JAX CLI with its choices and
@@ -33,8 +39,7 @@ has only the production path (--production is accepted); --platform,
 other effect.  Values that need unported work raise NotImplementedError
 naming their ROADMAP item: --serve (item 13), --loop-write-pos-space yes
 (item 4), --loop-coarse-ulocal yes (item 12), --prec double (item 9),
---basis-precision bf16 with --mesh (item 7), --mugiq-use-mg yes with
---mesh (item 15).
+--mugiq-use-mg yes with --mesh (item 15).
 """
 
 import argparse
@@ -122,10 +127,6 @@ def run(argv=None):
     use_mg = args.mugiq_use_mg == "yes"
     if use_mg and args.mesh is not None:
         not_ported("--mugiq-use-mg yes with --mesh", "item 15")
-    if (args.basis_precision == "bf16" and args.mesh is not None
-            and not use_mg):
-        not_ported("--basis-precision bf16 with --mesh (bf16 halo-extended "
-                   "spinors in K7a and K7b)", "item 7")
     mesh, device = build_mesh(args, gp.dims)
     quiet_unless_primary(mesh)
     mg = build_mg_param(args) if use_mg else None

@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS = {}
+_ENTRIES = {}
 
 
 def nvcc_path() -> str:
@@ -74,11 +75,42 @@ def _build_lock():
             fcntl.flock(f, fcntl.LOCK_UN)
 
 
+#: each source's nvcc seconds with 8 at once on an 8-core H100 host
+#: (chip_smoke.py's build line): the build order, longest first
+NVCC_SECONDS = {
+    "wilson_m_halo_psi_bf16": 52.3, "wilson_m_halo": 45.6,
+    "parity_hop_halo_psi_bf16": 44.6, "parity_hop_halo_all_bf16": 44.1,
+    "parity_hop_halo_bf16": 41.8, "parity_hop_halo": 41.7,
+    "wilson_m_staged_pair": 38.2, "parity_hop_staged_pair": 36.5,
+    "parity_hop_pair": 33.1, "wilson_m_pair": 33.0, "dslash_hop": 31.9,
+    "parity_hop": 31.8, "dslash_hop_halo_psi_bf16": 22.0,
+    "parity_hop_staged": 21.9, "dslash_hop_halo": 20.9,
+    "wilson_m_staged": 20.6, "parity_hop_bf16": 20.4, "wilson_m_bf16": 18.5,
+    "wilson_m": 17.2, "hop_dir": 7.1, "contract": 3.6}
+
+
+def build_order(names) -> list:
+    """The order in which the sources compile: longest first (a source
+    not in NVCC_SECONDS, not timed yet, before all), so that the last to
+    start are short."""
+    return sorted(names, key=lambda n: (-NVCC_SECONDS.get(n, float("inf")),
+                                        n))
+
+
+def build_jobs() -> int:
+    """How many nvcc processes run at once: one per core this process may
+    run on."""
+    try:
+        return max(len(os.sched_getaffinity(0)), 1)
+    except AttributeError:
+        return max(os.cpu_count() or 1, 1)
+
+
 def build_all(names=None) -> None:
     """Compile every ``csrc/<name>.cu`` of `names` (default: all sources)
-    not built yet, one nvcc process per source, all started together;
-    under the build directory's lock, so concurrent processes never run
-    nvcc into it at once."""
+    not built yet, one nvcc process per source, at most build_jobs() at
+    once, in build_order; under the build directory's lock, so concurrent
+    processes never run nvcc into it at once."""
     names = sources() if names is None else names
     if all(library_path(n).exists() for n in names):
         return
@@ -88,32 +120,33 @@ def build_all(names=None) -> None:
 
 def _build_missing(names) -> None:
     jobs = []
-    for name in names:
+    for name in build_order(names):
         so = library_path(name)
         if so.exists():
             continue
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
-        jobs.append((name, so, tmp, cmd, proc))
-    t0 = time.perf_counter()
+        jobs.append((name, so, tmp, cmd))
 
-    def finish(job):
-        name, so, tmp, cmd, proc = job
-        out, err = proc.communicate()
-        return out, err, time.perf_counter() - t0
+    def run(job):
+        """nvcc on one source: (stdout, stderr, rc, its own seconds)."""
+        cmd = job[3]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        return (proc.stdout, proc.stderr, proc.returncode,
+                time.perf_counter() - t0)
 
-    with ThreadPoolExecutor(max(len(jobs), 1)) as pool:
-        done = list(pool.map(finish, jobs))
+    # the pool starts the jobs in order, a new one as each ends
+    with ThreadPoolExecutor(min(build_jobs(), max(len(jobs), 1))) as pool:
+        done = list(pool.map(run, jobs))
     failed = []
-    for (name, so, tmp, cmd, proc), (out, err, secs) in zip(jobs, done):
+    for (name, so, tmp, cmd), (out, err, rc, secs) in zip(jobs, done):
         so.with_suffix(".log").write_text(
             " ".join(cmd) + f"\nnvcc {secs:.1f} s\n" + out + err)
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed building {name}.cu "
-                          f"(rc {proc.returncode}):\n{err}")
+        if rc != 0:
+            failed.append(f"nvcc failed building {name}.cu (rc {rc}):\n"
+                          f"{err}")
         else:
             os.replace(tmp, so)
     if failed:
@@ -126,6 +159,18 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return _LIBS[name]
+
+
+def entry(name: str, argtypes):
+    """The C entry point ``mugiq_<name>`` of ``csrc/<name>.cu`` (built and
+    loaded at first use), with its argument types set and returning the
+    launch's cudaError_t."""
+    if name not in _ENTRIES:
+        fn = getattr(load(name), f"mugiq_{name}")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _ENTRIES[name] = fn
+    return _ENTRIES[name]
 
 
 def build_log(name: str) -> str:

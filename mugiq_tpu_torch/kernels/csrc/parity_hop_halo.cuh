@@ -15,7 +15,10 @@
 //   U_in     [Tl, 4, 18, Zp, Yp*Xh]   input-parity links with z/y halos
 //   Ut       [Tl, 18, Zp, Yp*Xh]      input-parity t-links of global t - 1
 //   A_post, A_comb [Tl, 144, Zl, Yl*Xh], psi_out, out [Tl, 24, Zl, Yl*Xh]
-// (links and blocks f32 or bf16, upcast; arithmetic f32).
+// The spinors PT (psi_ext, psi_out and out: the output in psi's dtype, as
+// the TPU kernels' out_shape, so pass 1 writes d_o in it) are f32 or
+// bf16; links and blocks LT f32 or bf16.  Loads upcast, arithmetic is
+// f32, a bf16 output rounds once to nearest even (stf, as XLA's astype).
 //
 // Replaces the TPU kernels mugiq_tpu/pallas/schur_kernel.py
 // parity_hop_pallas_ext (:423, t halo) and parity_hop_pallas_extzy (:486,
@@ -35,12 +38,17 @@
 //
 // What bounds it on the H100: memory, as K6 (768 B per packed site and
 // pass in mode 0, plus 96 B of psi_out and 576 B of clover blocks per
-// site where the mode reads them, against 1320 + 288 flop).
+// site where the mode reads them, against 1320 + 288 flop; bf16 spinors
+// halve the spinor words' bytes).
 //
-// The 48 instances (dagger x mode x halo form x link type) take nvcc
-// about as long as the other sources together, so the link types build
-// as two sources, compiled in parallel: parity_hop_halo.cu (f32 links)
-// and parity_hop_halo_bf16.cu (bf16 links), both including this file.
+// Each spinor type has 48 instances (dagger x mode x halo form x link
+// type), which take nvcc about as long as the other sources together, so
+// every (spinor, link) type pair builds as a source of its own, compiled
+// in parallel: parity_hop_halo.cu (f32 spinors, f32 links),
+// parity_hop_halo_bf16.cu (f32 spinors, bf16 links),
+// parity_hop_halo_psi_bf16.cu (bf16 spinors, f32 links) and
+// parity_hop_halo_all_bf16.cu (bf16 spinors and links), each including
+// this file.
 
 #pragma once
 
@@ -48,12 +56,12 @@
 
 namespace {
 
-template <bool DAG, int MODE, bool ZEXT, bool YEXT, typename LT>
+template <bool DAG, int MODE, bool ZEXT, bool YEXT, typename LT, typename PT>
 __global__ void __launch_bounds__(128)
-parity_hop_halo_kernel(const float* __restrict__ psi_in, const LT* __restrict__ Uo,
+parity_hop_halo_kernel(const PT* __restrict__ psi_in, const LT* __restrict__ Uo,
                        const LT* __restrict__ Ui, const LT* __restrict__ Ut,
-                       const LT* __restrict__ Apost, const float* __restrict__ psi_out,
-                       const LT* __restrict__ Acomb, float* __restrict__ out, int Zl,
+                       const LT* __restrict__ Apost, const PT* __restrict__ psi_out,
+                       const LT* __restrict__ Acomb, PT* __restrict__ out, int Zl,
                        int Yl, int Xh, int parity_out, int t0, int nrows, int tstep,
                        float kappa2) {
   const int Zp = ZEXT ? Zl + 2 : Zl;
@@ -83,7 +91,7 @@ parity_hop_halo_kernel(const float* __restrict__ psi_in, const LT* __restrict__ 
   const long long ps_t = 24 * Sp;   // spinor t-stride
   const long long u_t = 72 * Sp;    // link t-stride
   const long long u_mu = 18 * Sp;   // link mu-stride
-  const float* pt = psi_in + (long long)(t + 1) * ps_t;   // extended row of t
+  const PT* pt = psi_in + (long long)(t + 1) * ps_t;   // extended row of t
   const LT* uot = Uo + (long long)t * u_t;
   const LT* uit = Ui + (long long)t * u_t;
   const long long zy = (long long)ze * YXp + (long long)ye * Xh;
@@ -135,8 +143,8 @@ parity_hop_halo_kernel(const float* __restrict__ psi_in, const LT* __restrict__ 
       for (int c = 0; c < 3; ++c) acc[s][c] = h[s][c];
   }
 
-  float* o = out + (long long)t * 24 * Sl + zyx;
-  const float* pe = MODE >= 2 ? psi_out + (long long)t * 24 * Sl + zyx : nullptr;
+  PT* o = out + (long long)t * 24 * Sl + zyx;
+  const PT* pe = MODE >= 2 ? psi_out + (long long)t * 24 * Sl + zyx : nullptr;
   const LT* ac = MODE == 3 ? Acomb + (long long)t * 144 * Sl + zyx : nullptr;
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
@@ -151,8 +159,8 @@ parity_hop_halo_kernel(const float* __restrict__ psi_in, const LT* __restrict__ 
           d = spin(pe, Sl, s, c);
         v = make_float2(d.x - kappa2 * v.x, d.y - kappa2 * v.y);
       }
-      o[(long long)(s * 3 + c) * Sl] = v.x;
-      o[(long long)(12 + s * 3 + c) * Sl] = v.y;
+      stf(o + (long long)(s * 3 + c) * Sl, v.x);
+      stf(o + (long long)(12 + s * 3 + c) * Sl, v.y);
     }
   }
 }
@@ -165,39 +173,39 @@ struct Args {
   cudaStream_t st;
 };
 
-template <bool DAG, int MODE, bool ZEXT, bool YEXT, typename LT>
+template <bool DAG, int MODE, bool ZEXT, bool YEXT, typename LT, typename PT>
 void launch(const Args& a) {
   const long long n = (long long)a.nrows * a.Zl * a.Yl * a.Xh;
   const unsigned grid = (unsigned)((n + 127) / 128);
-  parity_hop_halo_kernel<DAG, MODE, ZEXT, YEXT, LT><<<grid, 128, 0, a.st>>>(
-      static_cast<const float*>(a.psi_in), static_cast<const LT*>(a.Uo),
+  parity_hop_halo_kernel<DAG, MODE, ZEXT, YEXT, LT, PT><<<grid, 128, 0, a.st>>>(
+      static_cast<const PT*>(a.psi_in), static_cast<const LT*>(a.Uo),
       static_cast<const LT*>(a.Ui), static_cast<const LT*>(a.Ut),
-      static_cast<const LT*>(a.Apost), static_cast<const float*>(a.psi_out),
-      static_cast<const LT*>(a.Acomb), static_cast<float*>(a.out), a.Zl, a.Yl, a.Xh,
+      static_cast<const LT*>(a.Apost), static_cast<const PT*>(a.psi_out),
+      static_cast<const LT*>(a.Acomb), static_cast<PT*>(a.out), a.Zl, a.Yl, a.Xh,
       a.parity_out, a.t0, a.nrows, a.tstep, a.kappa2);
 }
 
 // ext: 0 = t halo only, 1 = t and z, 2 = t, z and y
-template <bool DAG, int MODE, typename LT>
+template <bool DAG, int MODE, typename LT, typename PT>
 void by_ext(int ext, const Args& a) {
-  if (ext == 0) launch<DAG, MODE, false, false, LT>(a);
-  else if (ext == 1) launch<DAG, MODE, true, false, LT>(a);
-  else launch<DAG, MODE, true, true, LT>(a);
+  if (ext == 0) launch<DAG, MODE, false, false, LT, PT>(a);
+  else if (ext == 1) launch<DAG, MODE, true, false, LT, PT>(a);
+  else launch<DAG, MODE, true, true, LT, PT>(a);
 }
 
-template <bool DAG, typename LT>
+template <bool DAG, typename LT, typename PT>
 void by_mode(int mode, int ext, const Args& a) {
   switch (mode) {
-    case 0: by_ext<DAG, 0, LT>(ext, a); break;
-    case 1: by_ext<DAG, 1, LT>(ext, a); break;
-    case 2: by_ext<DAG, 2, LT>(ext, a); break;
-    default: by_ext<DAG, 3, LT>(ext, a); break;
+    case 0: by_ext<DAG, 0, LT, PT>(ext, a); break;
+    case 1: by_ext<DAG, 1, LT, PT>(ext, a); break;
+    case 2: by_ext<DAG, 2, LT, PT>(ext, a); break;
+    default: by_ext<DAG, 3, LT, PT>(ext, a); break;
   }
 }
 
-// The C entry point's body for links of type LT: cudaError_t of the
-// launch (0 = success); mode 0-3 as above.
-template <typename LT>
+// The C entry point's body for links of type LT and spinors of type PT:
+// cudaError_t of the launch (0 = success); mode 0-3 as above.
+template <typename LT, typename PT>
 int parity_hop_halo_entry(const void* psi_ext, const void* Uo, const void* Ui,
                           const void* Ut, const void* Apost, const void* psi_out,
                           const void* Acomb, void* out, int Zl, int Yl, int Xh,
@@ -207,8 +215,8 @@ int parity_hop_halo_entry(const void* psi_ext, const void* Uo, const void* Ui,
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{psi_ext, Uo, Ui, Ut, Apost, psi_out, Acomb, out, Zl, Yl, Xh,
                parity_out, t0, nrows, tstep, kappa2, static_cast<cudaStream_t>(stream)};
-  if (dagger) by_mode<true, LT>(mode, ext, a);
-  else by_mode<false, LT>(mode, ext, a);
+  if (dagger) by_mode<true, LT, PT>(mode, ext, a);
+  else by_mode<false, LT, PT>(mode, ext, a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,9 @@
 // K7a and K4-halo: the halo-extended Wilson(-clover) operator M / M^dag
 // and the bare hop D / D^dag of one rank's block, for Hopper.  This header
-// holds the kernel; wilson_m_halo.cu (K7a) and dslash_hop_halo.cu (K4's
-// halo forms) instantiate it, so the parallel build compiles them side by
-// side.
+// holds the kernel and the C entry points' bodies; wilson_m_halo.cu (K7a)
+// and dslash_hop_halo.cu (K4's halo forms) instantiate it for f32
+// spinors, wilson_m_halo_psi_bf16.cu and dslash_hop_halo_psi_bf16.cu for
+// bf16 spinors, so the parallel build compiles them side by side.
 //
 //   out = A psi - kappa * D psi          (DIAG clover / Wilson, dagger = 0: M)
 //   out = A psi - kappa * D^dag psi      (dagger = 1: M^dag)
@@ -16,7 +17,10 @@
 //   Ut      [Tl, 18, Zp, Yp*X]        Ut[t] = U_t(global t - 1) (halo rows unread)
 //   A       [Tl, 144, Zl, Yl*X]       clover blocks, interior only (clover)
 //   out     [Tl, 24, Zl, Yl*X]        rows outside the launch are untouched
-// Links and clover are f32 or bf16 (upcast on load); arithmetic is f32.
+// The spinor PT is f32 or bf16 and the output OT takes its type, as the
+// TPU kernels' out_shape (psi_ext.dtype); links and clover LT are f32 or
+// bf16.  Loads upcast, arithmetic is f32, a bf16 output rounds once to
+// nearest even (stf, as XLA's astype).
 //
 // Replaces the TPU kernels of mugiq_tpu/parallel/shard_dslash.py:
 // wilson_m_pallas_ext (:112, t halo), wilson_m_pallas_ext2 (:151, t and z
@@ -45,7 +49,8 @@
 // ridge of ~20).  Per output site it reads 24 floats of psi, 4 local and
 // 4 neighbour links (72 words), with clover 144 words, and writes 24
 // floats; the halo rows add (2 + 2*Z-halo + 2*Y-halo) slices of reads.
-// The spinors and the output stay f32 here (the sharded path's types).
+// bf16 spinors halve the spinor words' bytes (the bf16 Krylov basis under
+// --mesh: 456 B a site with f32 links, 276 B all-bf16, against 552 B).
 // Neighbour reuse is left to L1/L2, as in K1.
 
 #pragma once
@@ -57,11 +62,12 @@ namespace {
 // the diagonal of the output: none (the bare hop), Wilson (psi), clover
 enum Diag { kHop = 0, kWilson = 1, kClover = 2 };
 
-template <bool DAG, int DIAG, bool ZEXT, bool YEXT, typename LT>
+template <bool DAG, int DIAG, bool ZEXT, bool YEXT, typename LT, typename PT,
+          typename OT>
 __global__ void __launch_bounds__(128)
-wilson_m_halo_kernel(const float* __restrict__ psi, const LT* __restrict__ U,
+wilson_m_halo_kernel(const PT* __restrict__ psi, const LT* __restrict__ U,
                      const LT* __restrict__ Ut, const LT* __restrict__ A,
-                     float* __restrict__ out, int Zl, int Yl, int X, int t0,
+                     OT* __restrict__ out, int Zl, int Yl, int X, int t0,
                      int nrows, int tstep, float kappa) {
   const int Zp = ZEXT ? Zl + 2 : Zl;
   const int Yp = YEXT ? Yl + 2 : Yl;
@@ -88,7 +94,7 @@ wilson_m_halo_kernel(const float* __restrict__ psi, const LT* __restrict__ U,
   const long long site = (long long)ze * YXp + (long long)ye * X + x;
   const long long ps_t = 24 * Sp;   // psi_ext t-stride
   const long long u_t = 72 * Sp;    // U t-stride
-  const float* pt = psi + (long long)(t + 1) * ps_t;   // extended row of t
+  const PT* pt = psi + (long long)(t + 1) * ps_t;   // extended row of t
   const long long zy = (long long)ze * YXp + (long long)ye * X;
   const Nbr n{site, zy + xp, zy + xm,
               (long long)ze * YXp + (long long)yp * X + x,
@@ -100,16 +106,16 @@ wilson_m_halo_kernel(const float* __restrict__ psi, const LT* __restrict__ U,
   hop8<DAG>(pt, psi + (long long)(t + 2) * ps_t, psi + (long long)t * ps_t,
             U + (long long)t * u_t, Ut + (long long)t * 18 * Sp, Sp, n, acc);
 
-  const float* pc = pt + site;
-  float* o = out + (long long)t * 24 * Sl + zyx;
+  const PT* pc = pt + site;
+  OT* o = out + (long long)t * 24 * Sl + zyx;
   const LT* at = DIAG == kClover ? A + (long long)t * 144 * Sl + zyx : nullptr;
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       if constexpr (DIAG == kHop) {
-        o[(long long)(s * 3 + c) * Sl] = acc[s][c].x;
-        o[(long long)(12 + s * 3 + c) * Sl] = acc[s][c].y;
+        stf(o + (long long)(s * 3 + c) * Sl, acc[s][c].x);
+        stf(o + (long long)(12 + s * 3 + c) * Sl, acc[s][c].y);
       } else {
         float2 d;
         if constexpr (DIAG == kClover) {
@@ -117,8 +123,8 @@ wilson_m_halo_kernel(const float* __restrict__ psi, const LT* __restrict__ U,
         } else {
           d = spin(pc, Sp, s, c);
         }
-        o[(long long)(s * 3 + c) * Sl] = d.x - kappa * acc[s][c].x;
-        o[(long long)(12 + s * 3 + c) * Sl] = d.y - kappa * acc[s][c].y;
+        stf(o + (long long)(s * 3 + c) * Sl, d.x - kappa * acc[s][c].x);
+        stf(o + (long long)(12 + s * 3 + c) * Sl, d.y - kappa * acc[s][c].y);
       }
     }
   }
@@ -132,22 +138,69 @@ struct Args {
   cudaStream_t st;
 };
 
-template <bool DAG, int DIAG, bool ZEXT, bool YEXT, typename LT>
+// PT: the spinor type; the output takes it
+template <bool DAG, int DIAG, bool ZEXT, bool YEXT, typename LT, typename PT>
 void launch(const Args& a) {
   const long long n = (long long)a.nrows * a.Zl * a.Yl * a.X;
   const unsigned grid = (unsigned)((n + 127) / 128);
-  wilson_m_halo_kernel<DAG, DIAG, ZEXT, YEXT, LT><<<grid, 128, 0, a.st>>>(
-      static_cast<const float*>(a.psi), static_cast<const LT*>(a.U),
+  wilson_m_halo_kernel<DAG, DIAG, ZEXT, YEXT, LT, PT, PT><<<grid, 128, 0, a.st>>>(
+      static_cast<const PT*>(a.psi), static_cast<const LT*>(a.U),
       static_cast<const LT*>(a.Ut), static_cast<const LT*>(a.A),
-      static_cast<float*>(a.out), a.Zl, a.Yl, a.X, a.t0, a.nrows, a.tstep, a.kappa);
+      static_cast<PT*>(a.out), a.Zl, a.Yl, a.X, a.t0, a.nrows, a.tstep, a.kappa);
 }
 
 // ext: 0 = t halo only, 1 = t and z, 2 = t, z and y (the JAX 1D/2D/3D forms)
-template <bool DAG, int DIAG, typename LT>
+template <bool DAG, int DIAG, typename LT, typename PT>
 void by_ext(int ext, const Args& a) {
-  if (ext == 0) launch<DAG, DIAG, false, false, LT>(a);
-  else if (ext == 1) launch<DAG, DIAG, true, false, LT>(a);
-  else launch<DAG, DIAG, true, true, LT>(a);
+  if (ext == 0) launch<DAG, DIAG, false, false, LT, PT>(a);
+  else if (ext == 1) launch<DAG, DIAG, true, false, LT, PT>(a);
+  else launch<DAG, DIAG, true, true, LT, PT>(a);
+}
+
+template <typename LT, typename PT>
+void m_dispatch(int dagger, int clover, int ext, const Args& a) {
+  if (dagger) {
+    if (clover) by_ext<true, kClover, LT, PT>(ext, a);
+    else by_ext<true, kWilson, LT, PT>(ext, a);
+  } else {
+    if (clover) by_ext<false, kClover, LT, PT>(ext, a);
+    else by_ext<false, kWilson, LT, PT>(ext, a);
+  }
+}
+
+// The C entry points' bodies for spinors of type PT: cudaError_t of the
+// launch (0 = success).  K7a: M / M^dag, Wilson or clover, 2 x 2 x 3 halo
+// forms x 2 link types.
+template <typename PT>
+int wilson_m_halo_entry(const void* psi_ext, const void* U, const void* Ut,
+                        const void* A, void* out, int Zl, int Yl, int X, int t0,
+                        int nrows, int tstep, int ext, float kappa, int dagger,
+                        int clover, int link_bf16, void* stream) {
+  if (ext < 0 || ext > 2 || nrows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{psi_ext, U, Ut, A, out, Zl, Yl, X, t0, nrows, tstep, kappa,
+               static_cast<cudaStream_t>(stream)};
+  if (link_bf16) m_dispatch<__nv_bfloat16, PT>(dagger, clover, ext, a);
+  else m_dispatch<float, PT>(dagger, clover, ext, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4-halo: D / D^dag with no diagonal, 2 daggers x 3 halo forms x 2 link
+// types.
+template <typename PT>
+int dslash_hop_halo_entry(const void* psi_ext, const void* U, const void* Ut, void* out,
+                          int Zl, int Yl, int X, int t0, int nrows, int tstep, int ext,
+                          int dagger, int link_bf16, void* stream) {
+  if (ext < 0 || ext > 2 || nrows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{psi_ext, U, Ut, nullptr, out, Zl, Yl, X, t0, nrows, tstep, 0.f,
+               static_cast<cudaStream_t>(stream)};
+  if (link_bf16) {
+    if (dagger) by_ext<true, kHop, __nv_bfloat16, PT>(ext, a);
+    else by_ext<false, kHop, __nv_bfloat16, PT>(ext, a);
+  } else {
+    if (dagger) by_ext<true, kHop, float, PT>(ext, a);
+    else by_ext<false, kHop, float, PT>(ext, a);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -24,8 +24,6 @@ from . import build
 from .wilson import (SPINOR_DTYPES, aligned_pairs, batch_shape,
                      clover_apply_plain, dslash_hop_plain, launch_plan)
 
-_fn = {}
-
 #: kernel modes of csrc/parity_hop.cu
 _HOP, _POST, _COMB, _COMB_CLOVER = 0, 1, 2, 3
 
@@ -36,17 +34,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: link_bf16, batch, stream
 ENTRY_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                   ctypes.c_float, _I, _I, _P]
-
-
-def _entry(name: str):
-    """The C entry point of ``csrc/<name>.cu``, one of K6's sources
-    (wilson.LaunchPlan.source)."""
-    if name not in _fn:
-        fn = getattr(build.load(name), f"mugiq_{name}")
-        fn.argtypes = ENTRY_ARGTYPES
-        fn.restype = ctypes.c_int
-        _fn[name] = fn
-    return _fn[name]
 
 
 def _mode(kappa2, psi_out, A_post, A_comb) -> int:
@@ -167,7 +154,7 @@ def parity_hop(psi_in, U_out, U_in, Y: int, parity_out: int, dagger: bool,
                        aligned_pairs(psi_in, U_out, U_in, A_post, psi_out,
                                      A_comb, out))
     with torch.cuda.device(dev):
-        rc = _entry(plan.source("parity_hop"))(
+        rc = build.entry(plan.source("parity_hop"), ENTRY_ARGTYPES)(
             psi_in.data_ptr(), U_out.data_ptr(), U_in.data_ptr(),
             ptr(A_post), ptr(psi_out), ptr(A_comb), out.data_ptr(), T, Z, Y,
             Xh, int(parity_out), int(dagger), mode, float(kappa2 or 0.0),
@@ -184,21 +171,17 @@ parity_hop.launches = 0
 # K7b: the halo-extended form of one rank's block
 # ---------------------------------------------------------------------------
 
-_fn_halo = {}
-
-
-def _entry_halo(bf16: bool):
-    """K7b's entry point for f32 or bf16 links: two sources, built in
-    parallel (csrc/parity_hop_halo.cuh says why)."""
-    if bf16 not in _fn_halo:
-        name = "parity_hop_halo_bf16" if bf16 else "parity_hop_halo"
-        fn = getattr(build.load(name), f"mugiq_{name}")
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
-                       ctypes.c_float, P]
-        fn.restype = I
-        _fn_halo[bf16] = fn
-    return _fn_halo[bf16]
+#: K7b's source for (bf16 spinors, bf16 links): four sources, built in
+#: parallel (csrc/parity_hop_halo.cuh says why)
+HALO_SOURCES = {(False, False): "parity_hop_halo",
+                (False, True): "parity_hop_halo_bf16",
+                (True, False): "parity_hop_halo_psi_bf16",
+                (True, True): "parity_hop_halo_all_bf16"}
+#: their C entry points: psi_ext, U_out, U_in, Ut, A_post, psi_out,
+#: A_comb, out, Zl, Yl, Xh, parity_out, t0, nrows, tstep, ext, dagger,
+#: mode, kappa2, stream
+HALO_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                 _I, _I, _I, ctypes.c_float, _P]
 
 
 def _unpack_one(packed, Y: int, parity: int, shift: int):
@@ -223,7 +206,9 @@ def parity_hop_halo_plain(psi_ext, U_out, U_in, Ut_in_shift, Y: int,
     the extended input spinor (zero on the output parity), both link
     parities and the shifted t-links, apply the halo-extended full-volume
     hop (wilson.dslash_hop_halo_plain), keep the output parity of each
-    row, then apply A_post or the combine.  Returns [R, 24, Zl, Y*Xh]."""
+    row, then apply A_post or the combine.  Spinors upcast to f32; returns
+    [R, 24, Zl, Y*Xh], the f32 result rounded once to psi_ext's dtype (as
+    the TPU kernels' out_shape and parity_hop_plain)."""
     from ..schur_kernel import pack_parity
     from .wilson import dslash_hop_halo_plain, halo_rows, halo_shapes
 
@@ -238,18 +223,19 @@ def parity_hop_halo_plain(psi_ext, U_out, U_in, Ut_in_shift, Y: int,
              for u, par in ((U_out, parity_out), (U_in, pin))]
     U = (links[0] + links[1]).reshape(Tl, 4, 18, Zp, Yp * 2 * Xh)
     Ut = _unpack_one(Ut_in_shift, Yp, pin, 1 + o)
-    full = dslash_hop_halo_plain(psi, U, Ut, dagger, Y, z_ext, y_ext, rows)
+    full = dslash_hop_halo_plain(psi, U, Ut, dagger, Y, z_ext, y_ext, rows,
+                                 torch.float32)
     hop = torch.cat([pack_parity(full[k:k + 1], Y, (parity_out + t) % 2)
                      for k, t in enumerate(r)])
     ri = torch.as_tensor(r, device=hop.device)
     if A_post is not None:
         hop = clover_apply_plain(A_post[ri], hop)
-    if kappa2 is None:
-        return hop
-    pe = psi_out[ri]
-    diag = pe.float() if A_comb is None else clover_apply_plain(A_comb[ri],
-                                                                pe)
-    return diag - kappa2 * hop
+    if kappa2 is not None:
+        pe = psi_out[ri]
+        diag = (pe.float() if A_comb is None
+                else clover_apply_plain(A_comb[ri], pe))
+        hop = diag - kappa2 * hop
+    return hop.to(psi_ext.dtype)
 
 
 def parity_hop_halo(psi_ext, U_out, U_in, Ut_in_shift, Y: int,
@@ -260,8 +246,9 @@ def parity_hop_halo(psi_ext, U_out, U_in, Ut_in_shift, Y: int,
     parity, on the given rows of one rank's block, from its halo-extended
     input-parity spinor.
 
-    psi_ext [Tl+2, 24, Zp, Yp*Xh] f32 (Zp = Zl+2 if z_ext, Yp = Y+2 if
-    y_ext); U_out / U_in [Tl, 4, 18, Zp, Yp*Xh] links based at output- /
+    psi_ext [Tl+2, 24, Zp, Yp*Xh] f32 or bf16 (Zp = Zl+2 if z_ext, Yp =
+    Y+2 if y_ext; psi_out and out in its dtype, f32 arithmetic, as K6);
+    U_out / U_in [Tl, 4, 18, Zp, Yp*Xh] links based at output- /
     input-parity sites with their z/y halos (f32 or bf16); Ut_in_shift
     [Tl, 18, Zp, Yp*Xh] the input-parity t-links of global t - 1;
     psi_out, A_post, A_comb interior [Tl, *, Zl, Y*Xh]; the modes as
@@ -269,7 +256,7 @@ def parity_hop_halo(psi_ext, U_out, U_in, Ut_in_shift, Y: int,
     (t0, nrows, tstep) or None for all; out [Tl, 24, Zl, Y*Xh] (rows
     outside the launch are left as they are).  CUDA tensors launch the
     kernel, CPU tensors run the twin."""
-    from .wilson import halo_rows, halo_shapes
+    from .wilson import count_halo_launch, halo_rows, halo_shapes
 
     if parity_out not in (0, 1):
         raise ValueError(f"parity_hop_halo: parity_out must be 0 or 1: "
@@ -289,15 +276,16 @@ def parity_hop_halo(psi_ext, U_out, U_in, Ut_in_shift, Y: int,
         if out is None and rows is None:
             return res
         if out is None:
-            out = torch.zeros(oshape, dtype=torch.float32)
+            out = torch.zeros(oshape, dtype=res.dtype)
         out[r] = res
         return out
     if psi_ext.device.type != "cuda":
         raise ValueError(f"parity_hop_halo: no kernel for device "
                          f"{psi_ext.device}")
     dev = psi_ext.device
-    f32 = (torch.float32,)
-    build.require(psi_ext, "psi_ext", (Tl + 2, 24, Zp, Yp * Xh), f32, dev)
+    build.require(psi_ext, "psi_ext", (Tl + 2, 24, Zp, Yp * Xh),
+                  SPINOR_DTYPES, dev)
+    same = (psi_ext.dtype,)
     build.require(U_out, "U_out", (Tl, 4, 18, Zp, Yp * Xh),
                   (torch.float32, torch.bfloat16), dev)
     build.require(U_in, "U_in", U_out.shape, (U_out.dtype,), dev)
@@ -307,10 +295,10 @@ def parity_hop_halo(psi_ext, U_out, U_in, Ut_in_shift, Y: int,
         if a is not None:
             build.require(a, name, (Tl, 144, Zl, Y * Xh), (U_out.dtype,), dev)
     if psi_out is not None:
-        build.require(psi_out, "psi_out", oshape, f32, dev)
+        build.require(psi_out, "psi_out", oshape, same, dev)
     if out is None:
-        out = torch.empty(oshape, dtype=torch.float32, device=dev)
-    build.require(out, "out", oshape, f32, dev)
+        out = torch.empty(oshape, dtype=psi_ext.dtype, device=dev)
+    build.require(out, "out", oshape, same, dev)
     if out.data_ptr() == psi_ext.data_ptr() or (
             psi_out is not None and out.data_ptr() == psi_out.data_ptr()):
         raise ValueError("parity_hop_halo: out must alias neither psi_ext "
@@ -321,16 +309,19 @@ def parity_hop_halo(psi_ext, U_out, U_in, Ut_in_shift, Y: int,
 
     t0, n, step = (0, Tl, 1) if rows is None else rows
     ext = 2 if y_ext else int(z_ext)
+    bf = torch.bfloat16
     with torch.cuda.device(dev):
-        rc = _entry_halo(U_out.dtype == torch.bfloat16)(
+        rc = build.entry(HALO_SOURCES[psi_ext.dtype == bf,
+                                      U_out.dtype == bf], HALO_ARGTYPES)(
             psi_ext.data_ptr(), U_out.data_ptr(), U_in.data_ptr(),
             Ut_in_shift.data_ptr(), ptr(A_post), ptr(psi_out), ptr(A_comb),
             out.data_ptr(), Zl, Y, Xh, int(parity_out), int(t0), int(n),
             int(step), ext, int(dagger), mode, float(kappa2 or 0.0),
             build.stream_handle(dev))
     build.check(rc, "parity_hop_halo")
-    parity_hop_halo.launches += 1
+    count_halo_launch(parity_hop_halo, psi_ext)
     return out
 
 
 parity_hop_halo.launches = 0
+parity_hop_halo.bf16_launches = 0

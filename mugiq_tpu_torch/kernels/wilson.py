@@ -12,7 +12,8 @@
   ``dslash_hop_pallas`` (:436) and ``dslash_hop_pallas_gl`` (:726).
 * K7a :func:`wilson_m_halo` and K4-halo :func:`dslash_hop_halo`
   (``csrc/wilson_m_halo.cuh``): the same on one rank's halo-extended
-  block; replace the kernels of ``mugiq_tpu/parallel/shard_dslash.py``.
+  block, f32 or bf16 spinors (the output in psi's dtype); replace the
+  kernels of ``mugiq_tpu/parallel/shard_dslash.py``.
 
 Each launches its CUDA kernel for CUDA tensors and runs its plain PyTorch
 twin (``*_plain``) for CPU tensors; any other device raises.  All are
@@ -31,24 +32,11 @@ from . import build
 #: Wilson hopping term flop count per site (8 hops, half-spinor form)
 FLOP_PER_SITE = 1320
 
-_fn = {}
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: the C entry points of K1's sources: psi, U, A, out, T, Z, Y, X, kappa,
 #: dagger, clover, link_bf16, batch, stream
 ENTRY_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I,
                   _I, _I, _P]
-
-
-def _entry(name: str):
-    """The C entry point of ``csrc/<name>.cu``, one of K1's sources
-    (LaunchPlan.source)."""
-    if name not in _fn:
-        fn = getattr(build.load(name), f"mugiq_{name}")
-        fn.argtypes = ENTRY_ARGTYPES
-        fn.restype = ctypes.c_int
-        _fn[name] = fn
-    return _fn[name]
 
 
 #: spinor dtypes of K1 and K6 (the output takes the input's)
@@ -224,7 +212,7 @@ def wilson_m(psi, U, A144, kappa: float, dagger: bool, Y: int, out=None):
     plan = launch_plan(b, YX // Y, psi.dtype == bf,
                        aligned_pairs(psi, U, A144, out))
     with torch.cuda.device(dev):
-        rc = _entry(plan.source("wilson_m"))(
+        rc = build.entry(plan.source("wilson_m"), ENTRY_ARGTYPES)(
             psi.data_ptr(), U.data_ptr(),
             None if A144 is None else A144.data_ptr(), out.data_ptr(), T, Z,
             Y, YX // Y, float(kappa), int(dagger), int(A144 is not None),
@@ -241,19 +229,10 @@ wilson_m.launches = 0
 # K4: the bare hopping term
 # ---------------------------------------------------------------------------
 
-_fn_hop = None
 _HOP_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def _entry_hop():
-    global _fn_hop
-    if _fn_hop is None:
-        fn = build.load("dslash_hop").mugiq_dslash_hop
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, I, I, I, I, I, I, I, I, P]
-        fn.restype = I
-        _fn_hop = fn
-    return _fn_hop
+#: the C entry point of K4: psi, U, out, T, Z, Y, X, dagger, psi_bf16,
+#: link_bf16, out_bf16, stream
+HOP_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
 def dslash_hop(psi, U, dagger: bool, Y: int, out_dtype=None, out=None):
@@ -287,10 +266,10 @@ def dslash_hop(psi, U, dagger: bool, Y: int, out_dtype=None, out=None):
                          "reads)")
     bf = torch.bfloat16
     with torch.cuda.device(dev):
-        rc = _entry_hop()(psi.data_ptr(), U.data_ptr(), out.data_ptr(), T, Z,
-                          Y, YX // Y, int(dagger), int(psi.dtype == bf),
-                          int(U.dtype == bf), int(odt == bf),
-                          build.stream_handle(dev))
+        rc = build.entry("dslash_hop", HOP_ARGTYPES)(
+            psi.data_ptr(), U.data_ptr(), out.data_ptr(), T, Z, Y, YX // Y,
+            int(dagger), int(psi.dtype == bf), int(U.dtype == bf),
+            int(odt == bf), build.stream_handle(dev))
     build.check(rc, "dslash_hop")
     dslash_hop.launches += 1
     return out
@@ -303,19 +282,19 @@ dslash_hop.launches = 0
 # K7a and K4-halo: the halo-extended forms of one rank's block
 # ---------------------------------------------------------------------------
 
-_fn_halo = None
+#: the C entry points of K7a's sources: psi_ext, U, Ut, A, out, Zl, Yl, X,
+#: t0, nrows, tstep, ext, kappa, dagger, clover, link_bf16, stream
+HALO_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                 ctypes.c_float, _I, _I, _I, _P]
+#: and of K4-halo's: psi_ext, U, Ut, out, Zl, Yl, X, t0, nrows, tstep,
+#: ext, dagger, link_bf16, stream
+HOP_HALO_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
-def _entry_halo():
-    global _fn_halo
-    if _fn_halo is None:
-        fn = build.load("wilson_m_halo").mugiq_wilson_m_halo
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float,
-                       I, I, I, P]
-        fn.restype = I
-        _fn_halo = fn
-    return _fn_halo
+def halo_source(kernel: str, psi_dtype) -> str:
+    """The source (``csrc/<source>.cu``) of a halo kernel for its spinor
+    type: f32 spinors in ``<kernel>.cu``, bf16 in ``<kernel>_psi_bf16.cu``."""
+    return kernel + ("_psi_bf16" if psi_dtype == torch.bfloat16 else "")
 
 
 def halo_rows(rows, Tl: int) -> list:
@@ -356,14 +335,17 @@ def _interior(a, z_ext: bool, y_ext: bool, Yp: int):
 
 
 def dslash_hop_halo_plain(psi_ext, U, Ut_shift, dagger: bool, Y: int,
-                          z_ext: bool, y_ext: bool, rows=None):
+                          z_ext: bool, y_ext: bool, rows=None,
+                          out_dtype=None):
     """The hopping term at the interior sites of the given rows of a block,
     from halo-extended inputs, in plain PyTorch: neighbours by slicing the
     halo rows where an axis is extended and by torch.roll where it is not;
     the eight hops stacked, explicit products and sums (no batched GEMM),
     so that every output element's arithmetic is the same for any row set.
-    psi_ext [Tl+2, 24, Zp, Yp*X], U [Tl, 4, 18, Zp, Yp*X], Ut_shift
-    [Tl, 18, Zp, Yp*X] (U_t of global t-1) -> [R, 24, Zl, Y*X] f32."""
+    psi_ext [Tl+2, 24, Zp, Yp*X] f32 or bf16, U [Tl, 4, 18, Zp, Yp*X],
+    Ut_shift [Tl, 18, Zp, Yp*X] (U_t of global t-1), upcast to f32 ->
+    [R, 24, Zl, Y*X], the f32 result rounded once to out_dtype (default
+    psi_ext's dtype, as the TPU kernels' out_shape)."""
     Tl = U.shape[0]
     _, _, Yp, _ = halo_shapes(psi_ext, Y, z_ext, y_ext, Tl)
     r = torch.as_tensor(halo_rows(rows, Tl), device=psi_ext.device)
@@ -401,7 +383,7 @@ def dslash_hop_halo_plain(psi_ext, U, Ut_shift, dagger: bool, Y: int,
     # explicit products and sums: sum_b L[a, b] V[s, b], then sum_s P[r, s]
     w = (L.unsqueeze(2) * V.unsqueeze(3)).sum(4)
     h = (P.reshape(8, 1, 4, 4, 1, 1, 1, 1) * w.unsqueeze(2)).sum(3)
-    return _rspinor(h.sum(0))
+    return _rspinor(h.sum(0)).to(out_dtype or psi_ext.dtype)
 
 
 def wilson_m_halo_plain(psi_ext, U, Ut_shift, A144, kappa: float,
@@ -409,24 +391,28 @@ def wilson_m_halo_plain(psi_ext, U, Ut_shift, A144, kappa: float,
                         rows=None):
     """Plain PyTorch twin of K7a on the given rows: A psi - kappa D psi at
     the interior sites, with the hop of dslash_hop_halo_plain; A144
-    [Tl, 144, Zl, Y*X] or None.  Returns [R, 24, Zl, Y*X] f32."""
+    [Tl, 144, Zl, Y*X] or None.  Returns [R, 24, Zl, Y*X], the f32 result
+    rounded once to psi_ext's dtype (bf16: to nearest even), as
+    wilson_m_plain."""
     Tl = U.shape[0]
     _, _, Yp, _ = halo_shapes(psi_ext, Y, z_ext, y_ext, Tl)
     r = torch.as_tensor(halo_rows(rows, Tl), device=psi_ext.device)
     pc = _interior(psi_ext[r + 1], z_ext, y_ext, Yp).float()
     diag = pc if A144 is None else clover_apply_plain(A144[r], pc)
-    return diag - kappa * dslash_hop_halo_plain(psi_ext, U, Ut_shift, dagger,
-                                                Y, z_ext, y_ext, rows)
+    hop = dslash_hop_halo_plain(psi_ext, U, Ut_shift, dagger, Y, z_ext,
+                                y_ext, rows, torch.float32)
+    return (diag - kappa * hop).to(psi_ext.dtype)
 
 
 def _halo_cpu(res, U, rows, out):
     """A twin's output rows placed as the kernel leaves them: the result
-    itself for every row, else written into out (zeros if None)."""
+    itself for every row, else written into out (zeros of the twin's
+    dtype if None)."""
     if out is None and rows is None:
         return res
     if out is None:
         out = torch.zeros((U.shape[0],) + tuple(res.shape[1:]),
-                          dtype=torch.float32)
+                          dtype=res.dtype)
     out[halo_rows(rows, U.shape[0])] = res
     return out
 
@@ -440,19 +426,15 @@ def _halo_cuda(what, psi_ext, U, Ut_shift, Y, z_ext, y_ext, rows, out):
     if psi_ext.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {psi_ext.device}")
     dev = psi_ext.device
-    if psi_ext.dtype == torch.bfloat16:
-        raise ValueError(f"{what}: bf16 halo-extended spinors are not "
-                         f"ported (ROADMAP queue 1 item 14: the sharded path "
-                         f"runs f32 spinors)")
     build.require(psi_ext, "psi_ext", (Tl + 2, 24, Zp, Yp * X),
-                  (torch.float32,), dev)
+                  SPINOR_DTYPES, dev)
     build.require(U, "U", (Tl, 4, 18, Zp, Yp * X),
                   (torch.float32, torch.bfloat16), dev)
     build.require(Ut_shift, "Ut_shift", (Tl, 18, Zp, Yp * X), (U.dtype,), dev)
     oshape = (Tl, 24, Zl, Y * X)
     if out is None:
-        out = torch.empty(oshape, dtype=torch.float32, device=dev)
-    build.require(out, "out", oshape, (torch.float32,), dev)
+        out = torch.empty(oshape, dtype=psi_ext.dtype, device=dev)
+    build.require(out, "out", oshape, (psi_ext.dtype,), dev)
     if out.data_ptr() == psi_ext.data_ptr():
         raise ValueError(f"{what}: out must not alias psi_ext")
     rows = (0, Tl, 1) if rows is None else tuple(int(v) for v in rows)
@@ -464,13 +446,15 @@ def wilson_m_halo(psi_ext, U, Ut_shift, A144, kappa: float, dagger: bool,
     """K7a: out[rows] = (A psi - kappa D psi)[rows] (M, or M^dag) of one
     rank's block from its halo-extended input.
 
-    psi_ext [Tl+2, 24, Zp, Yp*X] f32 (Zp = Zl+2 if z_ext, Yp = Y+2 if
-    y_ext; Y is the block's interior y extent); U [Tl, 4, 18, Zp, Yp*X]
+    psi_ext [Tl+2, 24, Zp, Yp*X] f32 or bf16 (Zp = Zl+2 if z_ext, Yp =
+    Y+2 if y_ext; Y is the block's interior y extent); U [Tl, 4, 18, Zp,
+    Yp*X]
     phased links with their z/y halos, f32 or bf16; Ut_shift [Tl, 18, Zp,
     Yp*X] with Ut_shift[t] = U_t(global t - 1); A144 [Tl, 144, Zl, Y*X] of
     U's dtype or None.  rows (t0, nrows, tstep) or None for all; out
-    [Tl, 24, Zl, Y*X] (rows outside the launch are left as they are).
-    CUDA tensors launch the kernel, CPU tensors run the twin."""
+    [Tl, 24, Zl, Y*X] in psi_ext's dtype (f32 arithmetic; rows outside
+    the launch are left as they are).  CUDA tensors launch the kernel,
+    CPU tensors run the twin."""
     if psi_ext.device.type == "cpu":
         return _halo_cpu(wilson_m_halo_plain(psi_ext, U, Ut_shift, A144,
                                              kappa, dagger, Y, z_ext, y_ext,
@@ -482,33 +466,27 @@ def wilson_m_halo(psi_ext, U, Ut_shift, A144, kappa: float, dagger: bool,
         build.require(A144, "A144", (U.shape[0], 144, Zl, Y * X), (U.dtype,),
                       dev)
     with torch.cuda.device(dev):
-        rc = _entry_halo()(psi_ext.data_ptr(), U.data_ptr(),
-                           Ut_shift.data_ptr(),
-                           None if A144 is None else A144.data_ptr(),
-                           out.data_ptr(), Zl, Y, X, t0, n, step, ext,
-                           float(kappa), int(dagger), int(A144 is not None),
-                           int(U.dtype == torch.bfloat16),
-                           build.stream_handle(dev))
+        rc = build.entry(halo_source("wilson_m_halo", psi_ext.dtype),
+                         HALO_ARGTYPES)(
+            psi_ext.data_ptr(), U.data_ptr(), Ut_shift.data_ptr(),
+            None if A144 is None else A144.data_ptr(), out.data_ptr(), Zl, Y,
+            X, t0, n, step, ext, float(kappa), int(dagger),
+            int(A144 is not None), int(U.dtype == torch.bfloat16),
+            build.stream_handle(dev))
     build.check(rc, "wilson_m_halo")
-    wilson_m_halo.launches += 1
+    count_halo_launch(wilson_m_halo, psi_ext)
     return out
 
 
+def count_halo_launch(kernel, psi_ext) -> None:
+    """One launch of a halo kernel: its count, and that of its bf16-spinor
+    form (`bf16_launches`, a part of `launches`)."""
+    kernel.launches += 1
+    kernel.bf16_launches += int(psi_ext.dtype == torch.bfloat16)
+
+
 wilson_m_halo.launches = 0
-
-
-_fn_hop_halo = None
-
-
-def _entry_hop_halo():
-    global _fn_hop_halo
-    if _fn_hop_halo is None:
-        fn = build.load("dslash_hop_halo").mugiq_dslash_hop_halo
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, I, P]
-        fn.restype = I
-        _fn_hop_halo = fn
-    return _fn_hop_halo
+wilson_m_halo.bf16_launches = 0
 
 
 def dslash_hop_halo(psi_ext, U, Ut_shift, dagger: bool, Y: int, z_ext: bool,
@@ -516,9 +494,9 @@ def dslash_hop_halo(psi_ext, U, Ut_shift, dagger: bool, Y: int, z_ext: bool,
     """K4-halo: out[rows] = (D psi)[rows] (dagger: D^dag psi) of one rank's
     block from its halo-extended input, with no diagonal and no kappa.
 
-    The operands, halo forms and row sets of :func:`wilson_m_halo` (f32
-    spinors, f32 or bf16 links, an f32 output).  CUDA tensors launch the
-    kernel, CPU tensors run the twin."""
+    The operands, halo forms and row sets of :func:`wilson_m_halo` (f32 or
+    bf16 spinors, f32 or bf16 links, the output in the spinors' dtype).
+    CUDA tensors launch the kernel, CPU tensors run the twin."""
     if psi_ext.device.type == "cpu":
         return _halo_cpu(dslash_hop_halo_plain(psi_ext, U, Ut_shift, dagger,
                                                Y, z_ext, y_ext, rows),
@@ -527,14 +505,15 @@ def dslash_hop_halo(psi_ext, U, Ut_shift, dagger: bool, Y: int, z_ext: bool,
         "dslash_hop_halo", psi_ext, U, Ut_shift, Y, z_ext, y_ext, rows, out)
     dev = out.device
     with torch.cuda.device(dev):
-        rc = _entry_hop_halo()(psi_ext.data_ptr(), U.data_ptr(),
-                               Ut_shift.data_ptr(), out.data_ptr(), Zl, Y, X,
-                               t0, n, step, ext, int(dagger),
-                               int(U.dtype == torch.bfloat16),
-                               build.stream_handle(dev))
+        rc = build.entry(halo_source("dslash_hop_halo", psi_ext.dtype),
+                         HOP_HALO_ARGTYPES)(
+            psi_ext.data_ptr(), U.data_ptr(), Ut_shift.data_ptr(),
+            out.data_ptr(), Zl, Y, X, t0, n, step, ext, int(dagger),
+            int(U.dtype == torch.bfloat16), build.stream_handle(dev))
     build.check(rc, "dslash_hop_halo")
-    dslash_hop_halo.launches += 1
+    count_halo_launch(dslash_hop_halo, psi_ext)
     return out
 
 
 dslash_hop_halo.launches = 0
+dslash_hop_halo.bf16_launches = 0

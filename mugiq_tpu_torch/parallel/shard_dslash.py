@@ -5,7 +5,9 @@ the interior/boundary split _overlap_apply).
 
 The JAX package builds a halo-extended copy of the local block from
 ppermuted slices and runs the Pallas stencil on it.  Here a preallocated
-extended buffer [Tl+2, 24, Zp, Yp*W] takes the block in its interior,
+extended buffer [Tl+2, 24, Zp, Yp*W] of the block's dtype (f32, or bf16
+for the vectors of a bf16 Krylov basis: the exchange then moves bf16, as
+the JAX ppermutes do; :class:`ExtBuffers`) takes the block in its interior,
 :class:`.halo.HaloExchange` fills its halos (y, then z, then t), and the
 K7 kernels (kernels.wilson.wilson_m_halo, kernels.parity.parity_hop_halo)
 or K4-halo (kernels.wilson.dslash_hop_halo) read it.  With ``overlap``
@@ -28,6 +30,22 @@ def ext_dims(mesh, W: int):
     Zl, Yl = mesh.local["z"], mesh.local["y"]
     return (Zl + 2 if mesh.z_ext else Zl), \
         (Yl + 2 if mesh.y_ext else Yl) * W
+
+
+class ExtBuffers:
+    """An operator's halo-extended spinor buffers [Tl+2, 24, Zp, Yp*W], one
+    per spinor dtype, each allocated at its first use: buffers(dtype)."""
+
+    def __init__(self, mesh, W: int, device):
+        self.shape = (mesh.local["t"] + 2, 24) + ext_dims(mesh, W)
+        self.device = device
+        self._bufs = {}
+
+    def __call__(self, dtype) -> torch.Tensor:
+        if dtype not in self._bufs:
+            self._bufs[dtype] = torch.zeros(self.shape, dtype=dtype,
+                                            device=self.device)
+        return self._bufs[dtype]
 
 
 def fill_interior(ext, src, mesh, W: int):
@@ -109,23 +127,23 @@ def make_sharded_dslash(mesh, halo, ext, dagger: bool = False,
     """The rank's bare hop D psi (dagger: D^dag psi) over any (t, z[, y])
     mesh: the three JAX factories make_sharded_dslash (t), _2d (t, z) and
     make_sharded_wilson_3d(kappa=None) (t, z, y) in one.  Returns
-    hop(psi_loc, U_ext, Ut_shift) -> [Tl, 24, Zl, Yl*X] f32, with psi_loc
-    the block [Tl, 24, Zl, Yl*X] and the links extended once by
-    extend_links (the JAX functions take the raw links and re-permute them
-    on every call).  halo, ext: the operator's exchange and extended f32
-    buffer [Tl+2, 24, Zp, Yp*X], shared with its M; overlap: the
+    hop(psi_loc, U_ext, Ut_shift) -> [Tl, 24, Zl, Yl*X] in psi_loc's dtype
+    (f32 or bf16), with psi_loc the block [Tl, 24, Zl, Yl*X] and the links
+    extended once by extend_links (the JAX functions take the raw links
+    and re-permute them on every call).  halo, ext: the operator's
+    exchange and ExtBuffers, shared with its M; overlap: the
     interior/boundary split."""
     Yl = mesh.local["y"]
 
     def hop(psi_loc, U_ext, Ut_shift):
-        out = torch.empty(psi_loc.shape, dtype=torch.float32,
-                          device=psi_loc.device)
+        buf = ext(psi_loc.dtype)
+        out = torch.empty_like(psi_loc)
 
         def launch(rows):
-            dslash_hop_halo(ext, U_ext, Ut_shift, dagger, Yl, mesh.z_ext,
+            dslash_hop_halo(buf, U_ext, Ut_shift, dagger, Yl, mesh.z_ext,
                             mesh.y_ext, rows=rows, out=out)
 
-        apply_halo(halo, ext, psi_loc, launch, mesh, psi_loc.shape[3] // Yl,
+        apply_halo(halo, buf, psi_loc, launch, mesh, psi_loc.shape[3] // Yl,
                    overlap)
         return out
 

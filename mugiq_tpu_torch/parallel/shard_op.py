@@ -4,7 +4,10 @@ mugiq_tpu.parallel.shard_op: ShardedWilsonKernel, ShardedSchurKernelPacked).
 Each rank holds its block of the kernel-layout fields; M and M^dag are one
 halo exchange and one K7 stencil pass (hop, clover diagonal and kappa
 combine in the kernel, as K1); the bare hop _hop / _hop_dag one exchange
-and one K4-halo pass; the packed Schur operator is two, as K6's.
+and one K4-halo pass; the packed Schur operator is two, as K6's.  Every
+application takes f32 or bf16 spinors and returns the input's dtype (the
+stored vectors of a bf16 Krylov basis run bf16 through the exchange and
+the kernels, as on one device and in the JAX package).
 The Krylov algebra runs on the local blocks and reduces its inner
 products over the ranks (lanczos.py's ``reduce``), so nothing else of the
 eigensolver changes.  Reference counterpart: QUDA's multi-GPU Dirac
@@ -20,7 +23,7 @@ from ..kernels.parity import parity_hop_halo
 from ..kernels.wilson import wilson_m_halo
 from ..params import EigOperator
 from .halo import HaloExchange
-from .shard_dslash import (apply_halo, ext_dims, extend_links,
+from .shard_dslash import (ExtBuffers, apply_halo, extend_links,
                            make_sharded_dslash)
 
 
@@ -88,9 +91,7 @@ class ShardedWilsonKernel(_Sharded):
                                                  self.X)
         self.A144 = (None if A144_loc is None
                      else A144_loc.to(dev, U_loc.dtype).contiguous())
-        Zp, YXp = ext_dims(mesh, self.X)
-        self._ext = torch.zeros((Tl + 2, 24, Zp, YXp), dtype=torch.float32,
-                                device=dev)
+        self._ext = ExtBuffers(mesh, self.X, dev)
         self._field_shape = (Tl, 24, Zl, YXl)
         hops = [make_sharded_dslash(mesh, self.halo, self._ext, dagger=d,
                                     overlap=overlap)
@@ -99,17 +100,17 @@ class ShardedWilsonKernel(_Sharded):
         self._hop_dag = lambda psi: hops[1](psi, self.U_ext, self.Ut_shift)
 
     def _apply(self, psi, dagger: bool):
-        out = torch.empty(self._field_shape, dtype=torch.float32,
+        out = torch.empty(self._field_shape, dtype=psi.dtype,
                           device=psi.device)
         m = self.mesh
+        ext = self._ext(psi.dtype)
 
         def launch(rows):
-            wilson_m_halo(self._ext, self.U_ext, self.Ut_shift, self.A144,
+            wilson_m_halo(ext, self.U_ext, self.Ut_shift, self.A144,
                           self.kappa, dagger, self.Yl, m.z_ext, m.y_ext,
                           rows=rows, out=out)
 
-        apply_halo(self.halo, self._ext, psi, launch, m, self.X,
-                   self.overlap)
+        apply_halo(self.halo, ext, psi, launch, m, self.X, self.overlap)
         return out
 
     @classmethod
@@ -162,33 +163,31 @@ class ShardedSchurKernelPacked(_Sharded):
         self.A_e = None if A_e is None else A_e.to(dev, store).contiguous()
         self.Ainv_o = (None if Ainv_o is None
                        else Ainv_o.to(dev, store).contiguous())
-        Zp, YXp = ext_dims(mesh, self.Xh)
-        self._ext = torch.zeros((Tl + 2, 24, Zp, YXp), dtype=torch.float32,
-                                device=dev)
+        self._ext = ExtBuffers(mesh, self.Xh, dev)
         self._field_shape = (Tl, 24, Zl, YXh)
 
     def _apply(self, pe, dagger: bool):
         # clover: M = A_ee pe - k^2 D_eo A_oo^-1 D_oe pe; M^dag has the same
-        # two passes with the dagger hop (the chiral blocks are Hermitian)
+        # two passes with the dagger hop (the chiral blocks are Hermitian);
+        # d_o and the output in pe's dtype, as K6 and the JAX out_shape
         m = self.mesh
-        d_o = torch.empty(self._field_shape, dtype=torch.float32,
+        d_o = torch.empty(self._field_shape, dtype=pe.dtype,
                           device=pe.device)
         out = torch.empty_like(d_o)
+        ext = self._ext(pe.dtype)
 
         def pass1(rows):
-            parity_hop_halo(self._ext, self.U_o, self.U_e, self.Ut_e,
-                            self.Yl, 1, dagger, m.z_ext, m.y_ext,
-                            A_post=self.Ainv_o, rows=rows, out=d_o)
+            parity_hop_halo(ext, self.U_o, self.U_e, self.Ut_e, self.Yl, 1,
+                            dagger, m.z_ext, m.y_ext, A_post=self.Ainv_o,
+                            rows=rows, out=d_o)
 
         def pass2(rows):
-            parity_hop_halo(self._ext, self.U_e, self.U_o, self.Ut_o,
-                            self.Yl, 0, dagger, m.z_ext, m.y_ext,
-                            kappa2=self.kappa ** 2, psi_out=pe,
-                            A_comb=self.A_e, rows=rows, out=out)
+            parity_hop_halo(ext, self.U_e, self.U_o, self.Ut_o, self.Yl, 0,
+                            dagger, m.z_ext, m.y_ext, kappa2=self.kappa ** 2,
+                            psi_out=pe, A_comb=self.A_e, rows=rows, out=out)
 
-        apply_halo(self.halo, self._ext, pe, pass1, m, self.Xh, self.overlap)
-        apply_halo(self.halo, self._ext, d_o, pass2, m, self.Xh,
-                   self.overlap)
+        apply_halo(self.halo, ext, pe, pass1, m, self.Xh, self.overlap)
+        apply_halo(self.halo, ext, d_o, pass2, m, self.Xh, self.overlap)
         return out
 
     @classmethod

@@ -1,4 +1,4 @@
-"""The single-device production loop on a CUDA device (port of
+"""The production loop on a CUDA device, or sharded over ranks (port of
 mugiq_tpu.production: build_kernel_dirac, build_packed_schur,
 compute_evecs_production, compute_loop_production,
 _measure_production_kernel, _measure_tail).
@@ -7,8 +7,8 @@ Eigensolve of MdagM (or MMdag) of the full operator, or of the packed
 even-odd preconditioned one, with thick-restart Lanczos or block Lanczos
 (block_size > 1; one batched launch per block step), optionally
 Chebyshev-filtered and then Rayleigh-Ritz refined, with the Krylov basis
-in f32 or bf16; of M or M^dag with the Krylov-Schur Arnoldi; the
-computeEvals tail;
+in f32 or bf16 (on one device or under a mesh); of M or M^dag with the
+Krylov-Schur Arnoldi; the computeEvals tail;
 the measurement on the kernel layout (K2 contraction, K3 displacement
 chains); the g5 map, momentum-projection GEMM and HDF5 output.  The
 MG-deflated loop (use_mg=True, _compute_loop_production_mg) eigensolves
@@ -142,7 +142,9 @@ def compute_evecs_production(U_np: np.ndarray, gauge: GaugeParam,
     basis in bf16 (f32 algebra; residuals floor near bf16 eps).
     mesh (a parallel.mesh.LatticeMesh): the sharded solve on the rank's
     block, on mesh.device; every inner product is reduced over the ranks
-    and the evecs returned are the rank's blocks.
+    and the evecs returned are the rank's blocks.  A bf16 basis runs
+    under a mesh too: the stored bf16 vectors go through the exchange and
+    the halo kernels in bf16, as on one device.
     Returns (result, evals, sigma, resids)."""
     if basis_precision not in ("f32", "bf16"):
         raise ValueError(f"basis_precision must be f32|bf16: "
@@ -158,9 +160,6 @@ def compute_evecs_production(U_np: np.ndarray, gauge: GaugeParam,
         if bdtype is not None:
             raise ValueError("basis_precision='bf16' is implemented for "
                              "the Hermitian Lanczos only (MdagM/MMdag)")
-    if bdtype is not None and mesh is not None:
-        not_ported("basis_precision='bf16' under a mesh (bf16 "
-                    "halo-extended spinors in K7a and K7b)", "item 7")
     dev = resolve_device(device) if mesh is None else mesh.device
     reduce = None if mesh is None else mesh.all_reduce
     with phase_timer("operator-setup"):

@@ -108,11 +108,8 @@ DIMS = ["--dims", "4", "4", "4", "4", "--device", "cpu"]
     ("loop", ["--serve", "requests"], "item 13"),
     ("loop", ["--loop-write-pos-space", "yes", "--loop-pos-space-filename",
               "pos.h5"], "item 4"),
-    ("loop", ["--basis-precision", "bf16", "--mesh", "1", "1"], "item 7"),
     ("loop", ["--prec", "double"], "item 9"),
-    ("eigensolve", ["--mugiq-use-mg", "yes"], "item 9"),
-    ("eigensolve", ["--basis-precision", "bf16", "--mesh", "1", "1"],
-     "item 7")])
+    ("eigensolve", ["--mugiq-use-mg", "yes"], "item 9")])
 def test_unported_values_name_their_item(cli, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         PORT[cli].run(DIMS + flags)

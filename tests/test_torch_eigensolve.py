@@ -109,10 +109,10 @@ def test_evec_checkpoint_round_trip(pc_run, tmp_path):
 @pytest.mark.parametrize("flags, item", [
     (["--mugiq-use-mg", "yes"], "item 9"),
     (["--mesh", "1", "1", "--mugiq-use-mg", "yes"], "item 9"),
-    (["--prec", "double"], "item 9"),
-    (["--basis-precision", "bf16", "--mesh", "1", "1"], "item 7")])
+    (["--prec", "double"], "item 9")])
 def test_options_outside_slice_raise(flags, item):
-    """--basis-precision bf16 and --eig-block-size 2 on one device run
-    (tests/test_torch_bf16_basis.py, test_torch_block_lanczos.py)."""
+    """--basis-precision bf16 and --eig-block-size 2 run on one device
+    (tests/test_torch_bf16_basis.py, test_torch_block_lanczos.py) and
+    under --mesh (tests/test_torch_mesh.py)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         cli.run(ARGS + PC + flags)

@@ -10,11 +10,13 @@ K6 needs even ones (the checkerboard), distinct so that no two axes can be
 confused.  K7a and K7b run on the block of a rank away from the origin of
 each mesh kind (t; t and z; t, z and y halos), with the interior and
 boundary row launches held to the single pass bit for bit; K4-halo
-likewise, and K4 in all 16 type variants.  Tolerances are f32 summation
-order only: K1, K4, K5 and K6 2e-5 of max |out| (up to ~100 terms per
-output, half-spinor vs full-projector form, K6's twin at full volume), K2
-2e-6, K3 1e-6; a bf16 output of K1, K4 or K6 one bf16 ulp of the largest
-output (2^-7 of max |out|).  K1's and K6's batched launch (a block of
+likewise, and K4 in all 16 type variants; the bf16-spinor forms of all
+three (bf16 out, f32 and bf16 links) likewise, within 2^-7 of max |out|,
+each launch counted in launches and in bf16_launches.  Tolerances are
+f32 summation order only: K1, K4, K5 and K6 2e-5 of max |out| (up to
+~100 terms per output, half-spinor vs full-projector form, K6's twin at
+full volume), K2 2e-6, K3 1e-6; a bf16 output of K1, K4 or K6 one bf16
+ulp of the largest output (2^-7 of max |out|).  K1's and K6's batched launch (a block of
 fields in one launch) equals single launches exactly, for every batch
 size the tiles cover (a partial last tile too), every spinor and link
 type and every mode; bf16 pairs and the one-site instance where pairs
@@ -270,6 +272,62 @@ def test_dslash_hop_halo_matches_twin_on_card(mesh, prec, dagger):
     torch.cuda.synchronize()
     assert dslash_hop_halo.launches == n0 + 3
     assert float((got - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+    assert torch.equal(split, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh", MESH_KINDS, ids=str)
+@pytest.mark.parametrize("link_t", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["k7a", "k4h", "k7b"])
+def test_halo_bf16_spinors_match_twin_on_card(mesh, link_t, kernel):
+    """bf16 psi_ext: K7a (clover M^dag), K4-halo (D^dag), K7b (pass 2 with
+    A_comb, M^dag) write bf16 within 2^-7 of max |out| of their twins, the
+    split equal to the single pass."""
+    dev = cuda_device()
+    dims = (6, 4, 4, 8) if kernel == "k7b" else (5, 6, 4, 8)
+    X, Y, Z, T = dims
+    W = X // 2 if kernel == "k7b" else X
+    bf = torch.bfloat16
+    psi = torch.from_numpy(rand((T, 24, Z, Y * W), 1)).to(dev).to(bf)
+    U = torch.from_numpy(rand((T, 4, 18, Z, Y * W), 2, 0.5)).to(dev).to(
+        link_t)
+    A = torch.from_numpy(rand((T, 144, Z, Y * W), 3, 0.2)).to(dev).to(link_t)
+    m = LatticeMesh(mesh, dims, rank=_far_rank(mesh, dims), device=dev)
+    ze, ye, Yl, Tl = m.z_ext, m.y_ext, m.local["y"], m.local["t"]
+    ext = dict(z=ze, y=ye)
+    pe = m.ext_block(psi, t=True, **ext)
+    Ue = m.ext_block(U, t=False, **ext)
+    Ute = m.ext_block(torch.roll(U[:, 3], 1, 0), t=False, **ext)
+    Al = m.local_block(A).contiguous()
+    if kernel == "k7a":
+        fn, plain, k = wilson_m_halo, wilson_m_halo_plain, (
+            pe, Ue, Ute, Al, 0.13, True, Yl, ze, ye)
+        kw = {}
+    elif kernel == "k4h":
+        fn, plain, k = dslash_hop_halo, dslash_hop_halo_plain, (
+            pe, Ue, Ute, True, Yl, ze, ye)
+        kw = {}
+    else:
+        Ui = torch.from_numpy(rand((T, 4, 18, Z, Y * W), 4, 0.5)).to(
+            dev).to(link_t)
+        fn, plain, k = parity_hop_halo, parity_hop_halo_plain, (
+            pe, Ue, m.ext_block(Ui, t=False, **ext),
+            m.ext_block(torch.roll(Ui[:, 3], 1, 0), t=False, **ext), Yl, 0,
+            True, ze, ye)
+        pout = torch.from_numpy(rand((T, 24, Z, Y * W), 5)).to(dev).to(bf)
+        kw = dict(kappa2=0.0169, psi_out=m.local_block(pout).contiguous(),
+                  A_comb=Al)
+    ref = plain(*k, **kw)
+    n0, b0 = fn.launches, fn.bf16_launches
+    got = fn(*k, **kw)
+    split = torch.full_like(got, float("nan"))
+    fn(*k, **kw, rows=(1, Tl - 2, 1), out=split)
+    fn(*k, **kw, rows=(0, 2, Tl - 1), out=split)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 3 and fn.bf16_launches == b0 + 3
+    assert got.dtype == ref.dtype == bf
+    assert float((got.float() - ref.float()).abs().max()) <= \
+        2.0 ** -7 * float(ref.float().abs().max())
     assert torch.equal(split, got)
 
 

@@ -14,6 +14,12 @@ twins on the CPU.
   bf16 links; K4-halo's D / D^dag against K4's twin; K7b's four modes,
   both output parities.  The interior and boundary row launches give the
   single pass bit for bit.
+* The same with bf16 spinors (the bf16 Krylov basis under --mesh): every
+  mesh kind, each kernel's variants with f32 and bf16 links, the bf16
+  block outputs (bf16 tensors, as the JAX out_shape) against the bf16-psi
+  K1 / K4 / K6 twins on the global field within 2^-7 of max |out| (both
+  round an f32 result once; summation orders differ), the split equal to
+  the single pass bit for bit.
 * Against the JAX package: wilson_m_pallas_ext, wilson_m_pallas_ext2,
   _pallas_ext3, _m_interior_call, _m_boundary_call
   (parallel/shard_dslash.py) and parity_hop_pallas_ext,
@@ -27,7 +33,10 @@ twins on the CPU.
   dslash_hop_pallas_ext, dslash_hop_pallas_ext2 and the kappa=None forms
   of _pallas_ext3, _m_interior_call and _m_boundary_call is slow in every
   case (its slab tie to K4's twin, which tests/test_torch_hop.py holds to
-  dslash_hop_pallas, runs by default).
+  dslash_hop_pallas, runs by default).  On a bf16 psi_ext the JAX kernels
+  write bf16 and the twins are held within 2^-7 of max |out|: one default
+  case each for _pallas_ext3 (K7a) and parity_hop_pallas_extzy (K7b), the
+  rest of the sweep (K4-halo's included) slow.
 """
 
 import itertools
@@ -56,11 +65,16 @@ MESHES = [(2, 1), (4, 1), (2, 2), (2, 2, 2), (1, 1)]
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
-def _fields(prec):
+#: a bf16 output against its reference: one bf16 ulp (2^-8 relative) of
+#: the largest output either way of a rounding boundary
+BF16_TOL = 2.0 ** -7
+
+
+def _fields(prec, psi_prec="f32"):
     dt = DTYPES[prec]
     U = torch.from_numpy(rand((T, 4, 18, Z, Y * X), 2, 0.5)).to(dt)
     A = torch.from_numpy(rand((T, 144, Z, Y * X), 3, 0.2)).to(dt)
-    psi = torch.from_numpy(rand((T, 24, Z, Y * X), 1))
+    psi = torch.from_numpy(rand((T, 24, Z, Y * X), 1)).to(DTYPES[psi_prec])
     return psi, U, A
 
 
@@ -130,13 +144,14 @@ def test_k4_halo_slab_tie(mesh, prec, dagger):
     assert err <= 1e-6
 
 
-def _packed_fields(prec, parity_out):
-    psi, U, A = _fields(prec)
+def _packed_fields(prec, parity_out, psi_prec="f32"):
+    psi, U, A = _fields(prec, psi_prec)
     pin = 1 - parity_out
     Uo = pack_parity_gauge(U, Y, parity_out)
     Ui = pack_parity_gauge(U, Y, pin)
     return dict(psi_in=pack_parity(psi, Y, pin),
-                psi_out=torch.from_numpy(rand((T, 24, Z, Y * XH), 5)),
+                psi_out=torch.from_numpy(rand((T, 24, Z, Y * XH), 5)).to(
+                    DTYPES[psi_prec]),
                 U_out=Uo, U_in=Ui, Ut_in=torch.roll(Ui[:, 3], 1, 0),
                 A=pack_parity(A, Y, parity_out))
 
@@ -180,6 +195,90 @@ def test_k7b_slab_tie(mesh, prec, mode, dagger):
         assert err <= 1e-6, (parity_out, err)
 
 
+def _bf16_tie(got, ref):
+    assert got.dtype == ref.dtype == torch.bfloat16
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= BF16_TOL * float(ref.float().abs().max()), err
+
+
+def _blocks(mesh, rank_out, like):
+    """The blocks of every rank of `mesh`, rank_out(m) -> (single pass,
+    the interior and boundary launches into one output), concatenated;
+    each rank's two forms equal bit for bit."""
+    got = torch.zeros_like(like)
+    for r in range(LatticeMesh(mesh, DIMS).world):
+        m = LatticeMesh(mesh, DIMS, rank=r)
+        full, split = rank_out(m)
+        assert full.dtype == torch.bfloat16 and torch.equal(split, full)
+        m.local_block(got)[...] = full
+    return got
+
+
+def _split(fn, m):
+    """fn(rows=, out=) as a single pass and as the interior / boundary
+    launches into one output."""
+    Tl = m.local["t"]
+    full = fn()
+    split = torch.full_like(full, float("nan"))
+    if Tl > 2:
+        fn(rows=(1, Tl - 2, 1), out=split)
+    fn(rows=(0, 2, Tl - 1), out=split)
+    return full, split
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=str)
+@pytest.mark.parametrize("kernel", ["k7a", "k4h", "k7b"])
+def test_bf16_psi_slab_tie(mesh, kernel):
+    """bf16 halo-extended spinors: the blocks of every rank against the
+    bf16-psi K1 / K4 / K6 twins on the global field, f32 and bf16 links,
+    each kernel's variants (K7a: M / M^dag, Wilson / clover; K4-halo: D /
+    D^dag; K7b: its four modes, both output parities, one dagger each)."""
+    for prec in ("f32", "bf16"):
+        psi, U, A = _fields(prec, "bf16")
+        if kernel == "k7b":
+            for (mode, dagger), po in itertools.product(
+                    zip(MODES, (False, True, True, False)), (0, 1)):
+                f = _packed_fields(prec, po, "bf16")
+                kw = MODES[mode](f)
+                ref = parity_hop_plain(f["psi_in"], f["U_out"], f["U_in"], Y,
+                                       po, dagger, **kw)
+
+                def rank_out(m):
+                    ext = dict(z=m.z_ext, y=m.y_ext)
+                    loc = {k: (m.local_block(v) if torch.is_tensor(v)
+                               else v) for k, v in kw.items()}
+                    args = (m.ext_block(f["psi_in"], t=True, **ext),
+                            m.ext_block(f["U_out"], t=False, **ext),
+                            m.ext_block(f["U_in"], t=False, **ext),
+                            m.ext_block(f["Ut_in"], t=False, **ext),
+                            m.local["y"], po, dagger, m.z_ext, m.y_ext)
+                    return _split(lambda **k: parity_hop_halo(*args, **loc,
+                                                              **k), m)
+
+                _bf16_tie(_blocks(mesh, rank_out, ref), ref)
+            continue
+        for clover, dagger in itertools.product(
+                (False, True) if kernel == "k7a" else (False,),
+                (False, True)):
+            if kernel == "k7a":
+                ref = wilson_m_plain(psi, U, A if clover else None, KAPPA,
+                                     dagger, Y)
+            else:
+                ref = dslash_hop_plain(psi, U, dagger, Y)
+
+            def rank_out(m):
+                pe, Ue, Ute, Al = _rank_inputs(m, psi, U, A, clover)
+                Yl = m.local["y"]
+                if kernel == "k7a":
+                    return _split(lambda **k: wilson_m_halo(
+                        pe, Ue, Ute, Al, KAPPA, dagger, Yl, m.z_ext, m.y_ext,
+                        **k), m)
+                return _split(lambda **k: dslash_hop_halo(
+                    pe, Ue, Ute, dagger, Yl, m.z_ext, m.y_ext, **k), m)
+
+            _bf16_tie(_blocks(mesh, rank_out, ref), ref)
+
+
 def test_halo_wrappers_check_their_inputs():
     psi, U, A = _fields("f32")
     m = LatticeMesh((2, 2, 2), DIMS, rank=3)
@@ -211,18 +310,25 @@ def _jx(t, prec):
     return a.astype(jnp.bfloat16) if prec == "bf16" else a
 
 
-def _close(got, want, tol=2e-5):
+def _close(got, want, psi_prec="f32"):
+    """2e-5 of max |out| (f32 summation order); a bf16 psi_ext gives bf16
+    out on both sides, held to BF16_TOL."""
+    tol = 2e-5
+    if psi_prec == "bf16":
+        assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+        tol = BF16_TOL
     want = np.asarray(want, np.float32)
-    err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    err = np.abs(_np(got) - want).max() / np.abs(want).max()
     assert err <= tol, err
 
 
-def _k7a_vs_jax(form, prec, clover, dagger):
+def _k7a_vs_jax(form, prec, clover, dagger, psi_prec="f32"):
     """form: ext (t mesh), ext2 (t x z), ext3 (t x z x y), interior and
-    boundary (t mesh and t x z mesh halves of the overlap split)."""
+    boundary (t mesh and t x z mesh halves of the overlap split); prec the
+    links' and clover's, psi_prec the spinors' (and the output's)."""
     import mugiq_tpu.parallel.shard_dslash as sd
 
-    psi, U, A = _fields(prec)
+    psi, U, A = _fields(prec, psi_prec)
     mesh = {"ext": (2, 1), "ext2": (2, 2), "ext3": (2, 2, 2),
             "interior": (2, 2), "boundary": (2, 1)}[form]
     m = LatticeMesh(mesh, DIMS, rank=m_rank(mesh))
@@ -233,21 +339,21 @@ def _k7a_vs_jax(form, prec, clover, dagger):
     jA = None if Al is None else _jx(Al, prec)
     kw = dict(kappa=KAPPA, dagger=dagger, has_clover=clover)
     if form == "ext":
-        want = sd.wilson_m_pallas_ext(jnp.asarray(pe.numpy()), _jx(Ue, prec),
+        want = sd.wilson_m_pallas_ext(_jx(pe, psi_prec), _jx(Ue, prec),
                                       _jx(Ute, prec), jA, Y=Yl, **kw)
     elif form == "ext2":
-        want = sd.wilson_m_pallas_ext2(jnp.asarray(pe.numpy()),
+        want = sd.wilson_m_pallas_ext2(_jx(pe, psi_prec),
                                        _jx(Ue, prec), _jx(Ute, prec), jA,
                                        Y=Yl, **kw)
     elif form == "ext3":
-        want = sd._pallas_ext3(jnp.asarray(pe.numpy()), _jx(Ue, prec),
+        want = sd._pallas_ext3(_jx(pe, psi_prec), _jx(Ue, prec),
                                _jx(Ute, prec), jA, Y=Yl, **kw)
     else:
         # the split's inputs: the z-extended block without t halos, the
         # unshifted t-links, and (boundary) the halos and the previous
         # rank's last t-link row
         z = m.z_ext
-        psi_loc = jnp.asarray(pe[1:-1].numpy())
+        psi_loc = _jx(pe[1:-1], psi_prec)
         ut_loc = _jx(m.ext_block(U[:, 3], t=False, z=z), prec)
         if form == "interior":
             want = sd._m_interior_call(psi_loc, _jx(Ue, prec), ut_loc, jA,
@@ -255,27 +361,27 @@ def _k7a_vs_jax(form, prec, clover, dagger):
             got = got[1:Tl - 1]
         else:
             want = sd._m_boundary_call(
-                psi_loc, jnp.asarray(pe[:1].numpy()),
-                jnp.asarray(pe[-1:].numpy()), _jx(Ue, prec), ut_loc,
+                psi_loc, _jx(pe[:1], psi_prec),
+                _jx(pe[-1:], psi_prec), _jx(Ue, prec), ut_loc,
                 _jx(Ute[:1], prec), jA, Yl, KAPPA, dagger, clover, z_ext=z)
             got = got[[0, Tl - 1]]
-    _close(got, want)
+    _close(got, want, psi_prec)
 
 
-def _k4h_vs_jax(form, prec, dagger):
+def _k4h_vs_jax(form, prec, dagger, psi_prec="f32"):
     """K4-halo's twin against the hop forms of the JAX halo kernels: ext
     (t mesh), ext2 (t x z), ext3 (t x z x y), interior and boundary (t x z
     and t halves of the overlap split), kappa=None."""
     import mugiq_tpu.parallel.shard_dslash as sd
 
-    psi, U, A = _fields(prec)
+    psi, U, A = _fields(prec, psi_prec)
     mesh = {"ext": (2, 1), "ext2": (2, 2), "ext3": (2, 2, 2),
             "interior": (2, 2), "boundary": (2, 1)}[form]
     m = LatticeMesh(mesh, DIMS, rank=m_rank(mesh))
     pe, Ue, Ute, _ = _rank_inputs(m, psi, U, A, False)
     Yl, Tl = m.local["y"], m.local["t"]
     got = dslash_hop_halo(pe, Ue, Ute, dagger, Yl, m.z_ext, m.y_ext)
-    jp = jnp.asarray(pe.numpy())
+    jp = _jx(pe, psi_prec)
     if form == "ext":
         want = sd.dslash_hop_pallas_ext(jp, _jx(Ue, prec), _jx(Ute, prec),
                                         Y=Yl, dagger=dagger)
@@ -287,7 +393,7 @@ def _k4h_vs_jax(form, prec, dagger):
                                Y=Yl, kappa=None, dagger=dagger)
     else:
         z = m.z_ext
-        psi_loc = jnp.asarray(pe[1:-1].numpy())
+        psi_loc = _jx(pe[1:-1], psi_prec)
         ut_loc = _jx(m.ext_block(U[:, 3], t=False, z=z), prec)
         if form == "interior":
             want = sd._m_interior_call(psi_loc, _jx(Ue, prec), ut_loc, None,
@@ -295,11 +401,11 @@ def _k4h_vs_jax(form, prec, dagger):
             got = got[1:Tl - 1]
         else:
             want = sd._m_boundary_call(
-                psi_loc, jnp.asarray(pe[:1].numpy()),
-                jnp.asarray(pe[-1:].numpy()), _jx(Ue, prec), ut_loc,
+                psi_loc, _jx(pe[:1], psi_prec),
+                _jx(pe[-1:], psi_prec), _jx(Ue, prec), ut_loc,
                 _jx(Ute[:1], prec), None, Yl, None, dagger, False, z_ext=z)
             got = got[[0, Tl - 1]]
-    _close(got, want)
+    _close(got, want, psi_prec)
 
 
 def m_rank(mesh):
@@ -310,10 +416,11 @@ def m_rank(mesh):
         {"t": shape[0] - 1, "z": shape[1] - 1, "y": shape[2] - 1})
 
 
-def _k7b_vs_jax(form, prec, mode, dagger, parity_out):
+def _k7b_vs_jax(form, prec, mode, dagger, parity_out,
+                psi_prec="f32"):
     import mugiq_tpu.pallas.schur_kernel as jsk
 
-    f = _packed_fields(prec, parity_out)
+    f = _packed_fields(prec, parity_out, psi_prec)
     kw = MODES[mode](f)
     mesh = (2, 1) if form == "ext" else (2, 2, 2)
     m = LatticeMesh(mesh, DIMS, rank=m_rank(mesh))
@@ -332,12 +439,12 @@ def _k7b_vs_jax(form, prec, mode, dagger, parity_out):
                                                     parity_out)))
     jkw = dict(dagger=dagger, kappa2=loc.get("kappa2"),
                psi_out=(None if "psi_out" not in loc
-                        else jnp.asarray(loc["psi_out"].numpy())),
+                        else _jx(loc["psi_out"], psi_prec)),
                A_post=(None if "A_post" not in loc
                        else _jx(loc["A_post"], prec)),
                A_comb=(None if "A_comb" not in loc
                        else _jx(loc["A_comb"], prec)))
-    args = (jnp.asarray(pe.numpy()), _jx(Uo, prec), _jx(Ui, prec),
+    args = (_jx(pe, psi_prec), _jx(Uo, prec), _jx(Ui, prec),
             _jx(Ut, prec), jnp.asarray(m.ext_block(off, t=False,
                                                    **ext).numpy()))
     if form == "ext":
@@ -345,7 +452,7 @@ def _k7b_vs_jax(form, prec, mode, dagger, parity_out):
     else:
         want = jsk.parity_hop_pallas_extzy(*args, Y=Yl, z_ext=ze, y_ext=ye,
                                            **jkw)
-    _close(got, want)
+    _close(got, want, psi_prec)
 
 
 # by default the most general form of each (t, z and y halos; clover,
@@ -353,6 +460,10 @@ def _k7b_vs_jax(form, prec, mode, dagger, parity_out):
 K7A_DEFAULT = [("ext3", "bf16", True, True)]
 K7B_DEFAULT = [("extzy", "bf16", "pass2+A_comb", True, 0)]
 K4H_DEFAULT = [("ext3", "f32", False)]
+# bf16 spinors (the bf16 basis under --mesh, bf16 links as its
+# configuration runs): the 3D forms by default
+K7A_BF16_DEFAULT = [("ext3", "bf16", True, True, "bf16")]
+K7B_BF16_DEFAULT = [("extzy", "bf16", "pass2+A_comb", True, 0, "bf16")]
 
 
 @pytest.mark.parametrize("case", K7A_DEFAULT, ids=lambda c: "-".join(
@@ -370,6 +481,36 @@ def test_k7b_matches_jax(case):
 @pytest.mark.parametrize("case", K4H_DEFAULT, ids=lambda c: "-".join(
     map(str, c)))
 def test_k4_halo_matches_jax(case):
+    _k4h_vs_jax(*case)
+
+
+@pytest.mark.parametrize("case", K7A_BF16_DEFAULT + K7B_BF16_DEFAULT,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_bf16_psi_matches_jax(case):
+    """bf16 psi_ext into the JAX halo kernels and the twins: bf16 out on
+    both sides, within 2^-7 of max |out|."""
+    (_k7a_vs_jax if len(case) == 5 else _k7b_vs_jax)(*case)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", [
+    c + ("bf16",) for c in itertools.product(
+        ["ext", "ext2", "ext3", "interior", "boundary"], ["f32", "bf16"],
+        [False, True], [False, True])
+    if c + ("bf16",) not in K7A_BF16_DEFAULT] + [
+    c + ("bf16",) for c in itertools.product(
+        ["ext", "extzy"], ["f32", "bf16"], list(MODES), [False, True], [0, 1])
+    if c + ("bf16",) not in K7B_BF16_DEFAULT],
+    ids=lambda c: "-".join(map(str, c)))
+def test_bf16_psi_matches_jax_sweep(case):
+    (_k7a_vs_jax if len(case) == 5 else _k7b_vs_jax)(*case)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", itertools.product(
+    ["ext", "ext2", "ext3", "interior", "boundary"], ["f32", "bf16"],
+    [False, True], ["bf16"]), ids=lambda c: "-".join(map(str, c)))
+def test_k4_halo_bf16_psi_matches_jax_sweep(case):
     _k4h_vs_jax(*case)
 
 

@@ -2,9 +2,11 @@
 their C entry points, on the CPU: pairs appear only where they are
 legal, block tiles only for a batch, each plan names a kernel source
 that exists, and every source's C entry point takes the arguments its
-wrapper passes."""
+wrapper passes; likewise the sources of the halo kernels K7a, K4-halo
+and K7b, one per spinor type (and K7b's per link type)."""
 
 import ctypes
+import os
 import re
 
 import pytest
@@ -57,3 +59,37 @@ def _c_params(name):
 def test_entry_point_matches_wrapper(name):
     kernel = "wilson_m" if name.startswith("wilson_m") else "parity_hop"
     assert _c_params(name) == KERNELS[kernel].ENTRY_ARGTYPES
+
+
+HALO_SOURCES = {
+    **{wilson.halo_source(k, dt): argtypes
+       for k, argtypes in (("wilson_m_halo", wilson.HALO_ARGTYPES),
+                           ("dslash_hop_halo", wilson.HOP_HALO_ARGTYPES))
+       for dt in wilson.SPINOR_DTYPES},
+    **{name: parity.HALO_ARGTYPES for name in parity.HALO_SOURCES.values()}}
+
+
+@pytest.mark.parametrize("name", sorted(HALO_SOURCES))
+def test_halo_entry_point_matches_wrapper(name):
+    assert _c_params(name) == HALO_SOURCES[name]
+
+
+def test_every_source_is_a_wrapper_source():
+    """Every csrc/*.cu is reached by a wrapper: the launch plans' K1 / K6
+    sources, the halo sources and the single-source kernels."""
+    plans = {f"{k}{s}" for k in KERNELS
+             for s in ("", "_bf16", "_pair", "_staged", "_staged_pair")}
+    single = {"contract", "dslash_hop", "hop_dir"}
+    assert set(build.sources()) == plans | set(HALO_SOURCES) | single
+
+
+def test_build_order_longest_first():
+    """The build starts the sources longest first, a source not timed yet
+    before all, at most one nvcc per core."""
+    order = build.build_order(build.sources() + ["new_kernel"])
+    assert order[0] == "new_kernel"
+    secs = [build.NVCC_SECONDS[n] for n in order[1:]]
+    assert secs == sorted(secs, reverse=True)
+    assert set(order[1:7]) == {n for n in build.sources() if "halo" in n
+                               and not n.startswith("dslash")}
+    assert 1 <= build.build_jobs() <= (os.cpu_count() or 1)

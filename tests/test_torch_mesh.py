@@ -23,6 +23,17 @@ rank), at (X, Y, Z, T) = (4, 4, 4, 8):
   2 2, 2 2 2) also the sharded bare hop (ShardedWilsonKernel._hop and
   _hop_dag, K4-halo over the exchange) against K4's twin on the global
   field, 1e-6 of max, split and single pass bit for bit.
+* Over 2 1 also the bf16 Krylov basis (--basis-precision bf16; the
+  stored bf16 vectors go through the exchange and the halo kernels' twins
+  in bf16): the loop CLI with bf16 links (the JAX time_production32
+  recipe) and the pc eigensolve CLI with f32 links, tol 1e-3 (a bf16
+  basis floors near bf16 eps).  Every rank against the port's
+  single-device bf16 run, eigenvalues 1e-3 relative (the basis rounds
+  after sums in another order, so the runs agree in eigenvalues, not bit
+  for bit), against the JAX fp64 numbers 3e-2 relative (the JAX bound
+  for a bf16 basis, tests/test_production.py:317-320), residuals < 0.1,
+  data_mom finite; its sharded operator on a bf16 field against the
+  single-device operator's block within 2^-7 of max |out|, bf16 out.
 * Over 2 1 also block Lanczos (the pc eigensolve CLI with
   --eig-block-size 2: each rank applies the sharded operator to the
   block one vector at a time) and the Krylov-Schur Arnoldi of M
@@ -31,11 +42,15 @@ rank), at (X, Y, Z, T) = (4, 4, 4, 8):
   against the port's single-device run: the same restarts, eigenvalues
   1e-6; block Lanczos also against the JAX pc eigenvalues.
 * In process: --mesh 1 1 on one rank without a process group equals the
-  single-device run exactly; the errors (NCCL with ranks sharing a card,
-  odd local extents with direct-pc, --mesh with MG, bad mesh shapes).
+  single-device run exactly, and with a bf16 basis (both CLIs) matches
+  the single-device bf16 run in eigenvalues (1e-3); the errors (NCCL
+  with ranks sharing a card, odd local extents with direct-pc, --mesh
+  with MG, bad mesh shapes).
 Slow: the same runs against the JAX production path itself
 (compute_loop_production / compute_evecs_production, interpret-mode
-Pallas; minutes).
+Pallas; minutes), the bf16 loop against JAX compute_loop_production with
+bf16 links and a bf16 basis on a 2-device t mesh (the recipe of
+tests/test_flagship_recipes.py test_production_recipe_bf16_mesh).
 """
 
 import json
@@ -68,12 +83,20 @@ LOOP = BASE + ["--eig-amin", "0.09", "--loop-do-nonlocal", "yes",
                "--displace-entry-string", ";".join(DISP)]
 PC = BASE + ["--eig-amin", "0.3", "--solve-type", "direct-pc"]
 CLOVER = ["--dslash-type", "clover", "--csw", "1.1"]
+# the bf16 Krylov basis: tol 1e-3, as a bf16 basis reaches it
+BF16_BASIS = ["--basis-precision", "bf16", "--eig-tol", "1e-3",
+              "--eig-max-restarts", "30"]
 # mesh -> jobs (name, mode); one torch.distributed.run per mesh
 LAUNCHES = {"2 1": [("loop", "loop"), ("pc", "eig"), ("block", "eig"),
-                    ("arnoldi", "arnoldi")],
+                    ("arnoldi", "arnoldi"), ("loop-bf16", "loop"),
+                    ("pc-bf16", "eig")],
             "2 2": [("loop", "loop"), ("pc-clover", "eig")],
             "2 2 2": [("loop", "loop"), ("pc", "eig")]}
-RUNS = [(m, name) for m, jobs in LAUNCHES.items() for name, _ in jobs]
+# the f32 runs, held to the single device bit for bit in their restarts
+RUNS = [(m, name) for m, jobs in LAUNCHES.items() for name, _ in jobs
+        if not name.endswith("-bf16")]
+BF16_RUNS = [(m, name) for m, jobs in LAUNCHES.items() for name, _ in jobs
+             if name.endswith("-bf16")]
 # the Arnoldi of M has no JAX reference at this size (a 6144^2 dense eig)
 JAX_RUNS = [r for r in RUNS if r[1] != "arnoldi"]
 # the unfiltered Arnoldi of M: its smallest-modulus eigenvalues
@@ -85,7 +108,9 @@ def _argv(name, mom):
     loop = LOOP + ["--momenta-filename", str(mom)]
     return {"loop": loop, "pc": PC, "pc-clover": PC + CLOVER,
             "block": PC + ["--eig-block-size", "2"],
-            "arnoldi": ARNOLDI}[name]
+            "arnoldi": ARNOLDI,
+            "loop-bf16": loop + BF16_BASIS + ["--link-precision", "bf16"],
+            "pc-bf16": PC + BF16_BASIS}[name]
 
 
 def _evec_file(out):
@@ -129,7 +154,7 @@ def _jax_refs():
 def _single(name, mom):
     """The port's single-device run: (evals, data_mom, restarts, evecs)."""
     argv = _argv(name, mom)
-    if name == "loop":
+    if name.startswith("loop"):
         r = cli_loop.run(argv)
         return r.evals, r.data_mom, r.n_restarts, None
     if name == "arnoldi":
@@ -171,7 +196,8 @@ def runs(tmp_path_factory):
         refs = {"jax": _jax_refs(),
                 "port": {n: _single(n, mom) for n in ("loop", "pc",
                                                       "pc-clover", "block",
-                                                      "arnoldi")}}
+                                                      "arnoldi", "loop-bf16",
+                                                      "pc-bf16")}}
     finally:
         for p, _, _, log in procs.values():
             try:
@@ -236,6 +262,49 @@ def test_mesh_bare_hop(runs, run):
     for res in got[run]:
         assert float(res["hop_err"]) <= 1e-6
         assert bool(res["overlap_same"])
+
+
+@pytest.mark.parametrize("run", BF16_RUNS, ids=lambda r: f"{r[1]}-{r[0]}")
+def test_mesh_bf16_basis(runs, run):
+    """The bf16 basis over 2 1: every rank within 1e-3 of the port's
+    single-device bf16 run and 3e-2 of the JAX fp64 eigenvalues, max
+    residual < 0.1, data_mom finite; the rank's sharded operator on a
+    bf16 field within 2^-7 of the single-device operator's block (bf16
+    out), the split equal to the single pass."""
+    got, refs = runs
+    name = run[1]
+    evals, data_mom, _, _ = refs["port"][name]
+    jax_evals, jax_mom = refs["jax"][name[:-len("-bf16")]]
+    for r, res in enumerate(got[run]):
+        assert bool(res["converged"]), r
+        np.testing.assert_allclose(res["evals"], evals, rtol=1e-3,
+                                   err_msg=f"rank {r}")
+        np.testing.assert_allclose(res["evals"], jax_evals, rtol=3e-2,
+                                   err_msg=f"rank {r}")
+        assert float(np.max(res["resids"])) < 0.1, r
+        if jax_mom is not None:
+            assert res["data_mom"].shape == jax_mom.shape
+            assert np.all(np.isfinite(res["data_mom"])), r
+        assert float(res["op_err"]) <= 2.0 ** -7
+        assert bool(res["overlap_same"])
+        assert str(res["op_dtype"]) == "torch.bfloat16"
+
+
+@pytest.mark.parametrize("name", ["loop-bf16", "pc-bf16"])
+def test_one_rank_mesh_bf16_basis(runs, tmp_path, name):
+    """--mesh 1 1 with a bf16 basis in one process, both CLIs: the
+    eigenvalues of the single-device bf16 run, 1e-3 relative."""
+    mom = tmp_path / "moms.txt"
+    mom.write_text("".join(f"{p[0]} {p[1]} {p[2]}\n" for p in MOMENTA))
+    argv = _argv(name, mom) + ["--mesh", "1", "1"]
+    if name == "loop-bf16":
+        res = cli_loop.run(argv)
+        evals = res.evals
+        assert np.all(np.isfinite(res.data_mom))
+    else:
+        res, evals, _, _ = cli_eig.run(argv)
+    assert res.converged
+    np.testing.assert_allclose(evals, runs[1]["port"][name][0], rtol=1e-3)
 
 
 @pytest.mark.parametrize("run", [r for r in RUNS if r[1] != "loop"],
@@ -392,3 +461,32 @@ def test_mesh_matches_jax_production(runs, name):
                 np.testing.assert_allclose(
                     res["data_mom"], data_mom,
                     atol=1e-4 * np.abs(data_mom).max())
+
+
+@pytest.mark.slow
+def test_mesh_bf16_matches_jax_production(runs):
+    """JAX compute_loop_production with precision="bf16",
+    basis_precision="bf16" on a 2-device 't' mesh (interpret-mode Pallas
+    halo kernels on bf16 spinors), the loop-bf16 recipe: every rank of the
+    port's 2 1 run within 3e-2 of its eigenvalues (the JAX bound for a
+    bf16 basis), data_mom finite of the same shape."""
+    import jax
+    from jax.sharding import Mesh
+
+    from mugiq_tpu import params as jp
+    from mugiq_tpu.production import compute_loop_production
+
+    ep = jp.EigParam(n_ev=4, n_kr=16, tol=1e-3, max_restarts=30,
+                     use_poly_acc=True, poly_deg=8, a_min=0.09)
+    lp = jp.LoopParam(momenta=MOMENTA, do_nonlocal=True, disp_entries=DISP)
+    mesh = Mesh(np.asarray(jax.devices()[:2]), ("t",))
+    ref = compute_loop_production(_gauge(), jp.GaugeParam(dims=DIMS),
+                                  jp.InvertParam(kappa=0.13), ep, lp,
+                                  mesh=mesh, precision="bf16",
+                                  basis_precision="bf16")
+    got, _ = runs
+    for r, res in enumerate(got[("2 1", "loop-bf16")]):
+        np.testing.assert_allclose(res["evals"], np.asarray(ref.evals),
+                                   rtol=3e-2, err_msg=f"rank {r}")
+        assert res["data_mom"].shape == np.asarray(ref.data_mom).shape
+        assert np.all(np.isfinite(res["data_mom"]))

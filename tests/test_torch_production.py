@@ -130,25 +130,33 @@ def test_slice_hdf5_matches_jax_writer(jax_ref, port_run):
                                        err_msg=name)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(basis_precision="bf16", mesh="1 1"),
-    dict(basis_precision="bf16", mesh="1 1",
-         eig=EigParam(n_ev=2, n_kr=8, block_size=2))])
-def test_eigensolve_options_outside_slice_raise(kw):
-    """The bf16 basis under a mesh needs bf16 halo-extended spinors in K7a
-    and K7b (ROADMAP item 7); the bf16 basis, block Lanczos and the
-    Arnoldi of M / M^dag on one device are held to the JAX package in
-    test_torch_bf16_basis.py, test_torch_block_lanczos.py and
-    test_torch_arnoldi.py."""
+@pytest.mark.parametrize("even_odd", [False, True], ids=["full", "pc"])
+def test_bf16_basis_under_one_rank_mesh(even_odd):
+    """compute_evecs_production with a bf16 Krylov basis over a one-rank
+    (1, 1) mesh (every sharded code path but the transfer: the halo
+    kernels' twins on the stored bf16 vectors) against the same solve on
+    one device: eigenvalues 1e-3 relative (the basis rounds after sums in
+    another order, so the runs agree in eigenvalues, not bit for bit),
+    residuals under 0.1 (the JAX bound for a bf16 basis), f32 evecs of
+    the rank's block.  The bf16 basis on one device is held to the JAX
+    package in test_torch_bf16_basis.py."""
     from mugiq_tpu_torch.parallel.mesh import LatticeMesh
 
-    kw = dict(kw)
-    eig = kw.pop("eig", EigParam(n_ev=2, n_kr=8))
-    kw["mesh"] = LatticeMesh((1, 1), DIMS, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        compute_evecs_production(_gauge(), GaugeParam(dims=DIMS),
-                                 InvertParam(kappa=0.13), eig, device="cpu",
-                                 **kw)
+    ep = EigParam(n_ev=4, n_kr=16, tol=1e-3, max_restarts=30,
+                  use_poly_acc=True, poly_deg=8,
+                  a_min=0.3 if even_odd else 0.09)
+    got = [compute_evecs_production(
+        _gauge(), GaugeParam(dims=DIMS), InvertParam(kappa=0.13), ep,
+        even_odd=even_odd, basis_precision="bf16", device="cpu",
+        mesh=mesh) for mesh in (None, LatticeMesh((1, 1), DIMS,
+                                                  device="cpu"))]
+    (one, ev1, _, _), (res, evals, _, resids) = got
+    assert one.converged and res.converged
+    np.testing.assert_allclose(evals, ev1, rtol=1e-3)
+    assert max(resids) < 0.1
+    assert res.evecs.dtype == torch.float32
+    assert res.evecs.shape == one.evecs.shape == (
+        4, 4, 24, 4, 16 // (2 if even_odd else 1))
 
 
 @pytest.mark.parametrize("kw, match", [

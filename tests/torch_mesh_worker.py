@@ -11,7 +11,8 @@ on a random field against the single-device operator's block of the same
 field (M, M^dag, M^dag M: the full operator for "loop", the packed one for
 "eig --solve-type direct-pc"; for "loop" also the bare hop _hop / _hop_dag
 against K4's twin on the global field) and the interior/boundary split
-against the single pass, bit for bit; then runs the loop or eigensolve
+against the single pass, bit for bit (with --basis-precision bf16 on a
+bf16 field, the operators' outputs bf16); then runs the loop or eigensolve
 CLI's run() and writes its results to OUTDIR/<name>.rank<r>.npz.
 """
 
@@ -42,7 +43,10 @@ def op_check(cli, argv):
     """(max rel err of the sharded operator against the single-device
     block, overlap split bit-identical to the single pass, max rel err of
     the bare hop against K4 on the global field (full operator only, else
-    0), mesh)."""
+    0), the field's dtype if every output has it (else "mixed"), mesh).
+    The field is bf16 with --basis-precision bf16 (what the operator sees
+    of a bf16 basis), then M and M^dag only: M^dag M would compound two
+    bf16 roundings."""
     args = cli.parse_args(argv)
     gp, ip, _ = build_params(args)
     mesh, _ = build_mesh(args, gp.dims)
@@ -62,24 +66,30 @@ def op_check(cli, argv):
                for o in (True, False)]
     psi = torch.from_numpy(np.random.default_rng(7).standard_normal(
         single.field_shape).astype(np.float32))
+    bf16 = args.basis_precision == "bf16"
+    if bf16:
+        psi = psi.bfloat16()
     loc = ops[0].place(psi)
-    err, same = 0.0, True
-    for name in ("M", "Mdag", "MdagM"):
+    err, same, dtype_ok = 0.0, True, True
+    for name in ("M", "Mdag") + (() if bf16 else ("MdagM",)):
         want = mesh.local_block(getattr(single, name)(psi))
         got = [getattr(op, name)(loc) for op in ops]
-        err = max(err, float((got[0] - want).abs().max()
-                             / want.abs().max()))
+        err = max(err, float((got[0].float() - want.float()).abs().max()
+                             / want.float().abs().max()))
         same = same and torch.equal(got[0], got[1])
+        dtype_ok = dtype_ok and got[0].dtype == want.dtype == psi.dtype
     hop_err = 0.0
     if not pc:
         for dagger, name in ((False, "_hop"), (True, "_hop_dag")):
             want = mesh.local_block(dslash_hop(psi, single.U_k, dagger,
                                                single.Y))
             got = [getattr(op, name)(loc) for op in ops]
-            hop_err = max(hop_err, float((got[0] - want).abs().max()
-                                         / want.abs().max()))
+            hop_err = max(hop_err, float((got[0].float() - want.float())
+                                         .abs().max()
+                                         / want.float().abs().max()))
             same = same and torch.equal(got[0], got[1])
-    return err, same, hop_err, mesh
+            dtype_ok = dtype_ok and got[0].dtype == psi.dtype
+    return err, same, hop_err, str(psi.dtype) if dtype_ok else "mixed", mesh
 
 
 def arnoldi(argv, mesh):
@@ -102,7 +112,7 @@ def main():
     out = Path(sys.argv[1])
     for job in json.loads(Path(sys.argv[2]).read_text()):
         cli = cli_loop if job["mode"] == "loop" else cli_eig
-        err, same, hop_err, mesh = op_check(cli, job["argv"])
+        err, same, hop_err, op_dtype, mesh = op_check(cli, job["argv"])
         if job["mode"] == "loop":
             res = cli.run(job["argv"])
             evals, sigma, resids = res.evals, res.sigma, res.resids
@@ -117,6 +127,7 @@ def main():
                  resids=np.asarray(resids), data_mom=data_mom,
                  n_restarts=res.n_restarts, converged=res.converged,
                  op_err=err, overlap_same=same, hop_err=hop_err,
+                 op_dtype=op_dtype,
                  evec_shape=np.asarray(shape),
                  local_dims=np.asarray(mesh.local_dims))
     shutdown_distributed()
