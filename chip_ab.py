@@ -49,15 +49,31 @@ KEEP = [
     (r"^(K5 dslash_hop_dir f32 \+x dagger=0):.* kernel ([0-9.]+) ms", "ms"),
     (r"^(K4 dslash_hop psi f32 links f32 out f32 dagger=0):.* kernel "
      r"([0-9.]+) ms", "ms"),
-    (r"^(headline K4 hop 32\^3x64 f32) \(psi, links, out\): ([0-9.]+) us",
-     "us"),
+    (r"^(headline K4 hop 32\^3x64 (?:f32|bf16)) \(psi, links, out\): "
+     r"([0-9.]+) us", "us"),
+    (r"^(K4 dslash_hop psi bf16 links bf16 out bf16 dagger=0):.* kernel "
+     r"([0-9.]+) ms", "ms"),
     (r"^(K7a wilson_m_halo mesh 2 1 rank 0 f32 clover=0 dagger=0):.* kernel "
      r"([0-9.]+) ms", "ms"),
     (r"^(K7b parity_hop_halo mesh 2 1 rank 0 f32 pass1 dagger=0):.* kernel "
      r"([0-9.]+) ms", "ms"),
     (r"^(K4-halo dslash_hop_halo mesh 2 1 rank 0 f32 dagger=0):.* kernel "
      r"([0-9.]+) ms", "ms"),
-    (r'^(.*flagship): wall .*"solution": ([0-9.]+)\}', "s solution"),
+    # the bf16-spinor halo forms (f32 or bf16 links) at the same block
+    (r"^(wilson_m_halo mesh 2 1 rank 0 bf16 spinors, (?:f32|bf16) links, "
+     r"clover=[01] dagger=0): kernel ([0-9.]+) ms", "ms"),
+    (r"^(dslash_hop_halo mesh 2 1 rank 0 bf16 spinors, (?:f32|bf16) links, "
+     r"dagger=0): kernel ([0-9.]+) ms", "ms"),
+    # the one-site instance of the bf16-spinor forms (a misaligned base)
+    (r"^(K4 dslash_hop bf16 spinors, (?:f32|bf16) links, out bf16, one site "
+     r"a thread D): kernel ([0-9.]+) ms", "ms"),
+    (r"^((?:wilson_m_halo|dslash_hop_halo) bf16 spinors, (?:f32|bf16) links, "
+     r"(?:Wilson M|D), one site a thread), mesh 2 1 rank 0: kernel "
+     r"([0-9.]+) ms", "ms"),
+    (r'^(.*flagship[^:]*): wall .*"solution": ([0-9.]+)\}', "s solution"),
+    # rank 0 of each mesh flagship
+    (r'^(mesh flagship [^:]*) rank 0/\d+: .*"solution": ([0-9.]+)\}',
+     "s solution"),
 ]
 
 

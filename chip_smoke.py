@@ -9,7 +9,7 @@ Phases (each prints its own lines and raises on failure):
             versions, the kernels' build from the sources in this checkout
             (one nvcc per source, at most one per core at once, the longest
             first; each source's seconds), and the registers and spills of
-            every instance of K1's and K6's kernels;
+            every instance of the stencils' kernels (K1, K4-K7b);
   kernels   K1-K3 against their plain PyTorch twins on the card at the
             flagship shapes (32^3x64): max error against a stated
             tolerance, kernel / twin times from CUDA events (median after
@@ -59,7 +59,10 @@ Phases (each prints its own lines and raises on failure):
             of scripts/time_mg32.py plus one displacement), held to the
             coarse eigenvalues the JAX package recorded;
   hop       K4 (the bare hop D psi) against its twin at 32^3x64 in all 16
-            variants (spinor, links and output f32 or bf16, D and D^dag);
+            variants (spinor, links and output f32 or bf16, D and D^dag;
+            bf16 spinors two sites a thread), and its one-site bf16
+            instance (a misaligned base) against its twin and timed beside
+            the pair form;
             K4 tied to the eight K5 hops and to K1; the masked even-even
             preconditioned operator (dirac_kernel.SchurDiracKernel, two K4
             hops per application) tied to K6's packed M_pc and timed
@@ -75,7 +78,10 @@ Phases (each prints its own lines and raises on failure):
             forms (bf16 in and out; f32 and bf16 links; every variant) at
             the 2 1 rank-0 block against their twins within 2^-7 of max
             |out|, the split bit for bit, timed with bounds, and both
-            ranks' blocks tied to the bf16-spinor K1, K4 and K6;
+            ranks' blocks tied to the bf16-spinor K1, K4 and K6; K7a's and
+            K4-halo's bf16 pairs of the z and y halo forms (rank 0 of 2 2
+            and 2 2 2) against their twins, and their one-site bf16
+            instance (a misaligned base) likewise, timed beside the pairs;
   mesh-slice  the 8^3x16 loop over --mesh 2 2 2 (8 ranks on the card,
             gloo) and the pc eigensolve (f32 and bf16 basis), its block
             Lanczos (b = 4) and the Arnoldi of M over --mesh 2 1, held to
@@ -210,14 +216,15 @@ TPU_KERNEL = {
     "dslash_hop_halo": "mugiq_tpu/parallel/shard_dslash.py:38 (and :74, "
                        ":199, :314, :357 with kappa=None)",
 }
-# the sources of the halo kernels' bf16-spinor forms (kernel, form)
+# the sources of the halo kernels' bf16-spinor forms (kernel, form) at the
+# 32^3x64 rank-0 block (even X, aligned: K7a's and K4-halo's pairs)
 BF16_PSI_SOURCE = {
     (k, f): f"mugiq_tpu_torch/kernels/csrc/{src}.cu"
     for k, f, src in (
-        ("wilson_m_halo", "bf16_psi", "wilson_m_halo_psi_bf16"),
-        ("wilson_m_halo", "all_bf16", "wilson_m_halo_psi_bf16"),
-        ("dslash_hop_halo", "bf16_psi", "dslash_hop_halo_psi_bf16"),
-        ("dslash_hop_halo", "all_bf16", "dslash_hop_halo_psi_bf16"),
+        ("wilson_m_halo", "bf16_psi", "wilson_m_halo_pair"),
+        ("wilson_m_halo", "all_bf16", "wilson_m_halo_pair"),
+        ("dslash_hop_halo", "bf16_psi", "dslash_hop_halo_pair"),
+        ("dslash_hop_halo", "all_bf16", "dslash_hop_halo_pair"),
         ("parity_hop_halo", "bf16_psi", "parity_hop_halo_psi_bf16"),
         ("parity_hop_halo", "all_bf16", "parity_hop_halo_all_bf16"))}
 SOURCE = {
@@ -229,7 +236,7 @@ SOURCE = {
     "wilson_m_halo": "mugiq_tpu_torch/kernels/csrc/wilson_m_halo.cu",
     "parity_hop_halo": "mugiq_tpu_torch/kernels/csrc/parity_hop_halo.cuh",
     "dslash_hop": "mugiq_tpu_torch/kernels/csrc/dslash_hop.cu",
-    "dslash_hop_halo": "mugiq_tpu_torch/kernels/csrc/wilson_m_halo.cuh",
+    "dslash_hop_halo": "mugiq_tpu_torch/kernels/csrc/dslash_hop_halo.cu",
 }
 
 # The 8^3x16 slices of the slice and pc-slice phases as CLI flags, for the
@@ -357,6 +364,16 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
+def misaligned(a):
+    """A copy of `a` whose base is one element past a four-byte boundary:
+    a bf16 operand that forces a stencil's one-site instance."""
+    import torch
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    v = buf[1:].view(a.shape)
+    v.copy_(a)
+    return v
+
+
 def compare(name, got, ref):
     import torch
     torch.cuda.synchronize()
@@ -398,16 +415,17 @@ def phase_build():
         say(f"  {name}.cu: nvcc {secs[name]}; ptxas: {len(regs)} kernels, "
             f"{min(regs, default=0)}-{max(regs, default=0)} registers, "
             f"{spill} bytes of spill stores")
-    say("K1/K6 instances (template arguments DAG, CLOVER, [K6 one-site "
-        "f32: pass,] K sites a thread, link, spinor; registers, spill store "
-        "and load bytes): " + json.dumps(k1_k6_instances()))
+    say("stencil instances (kernel<template arguments>, registers, spill "
+        "store and load bytes), by source:")
+    for name, inst in stencil_instances().items():
+        say(f"  {name}.cu: {json.dumps(inst)}")
 
 
-# the sources of K1's and K6's kernels (wilson_m.cuh, parity_hop.cuh), one
-# instance group each
-K1_K6_SOURCES = tuple(f"{k}{s}" for k in ("wilson_m", "parity_hop")
-                     for s in ("", "_bf16", "_pair", "_staged",
-                               "_staged_pair"))
+def stencil_sources():
+    """The sources of the stencils' kernels: every source but K2's and
+    K3's."""
+    from mugiq_tpu_torch.kernels import build
+    return [n for n in build.sources() if n != "contract"]
 
 
 def ptxas_instances(log):
@@ -430,13 +448,13 @@ def ptxas_instances(log):
     return out
 
 
-def k1_k6_instances():
+def stencil_instances():
     """{source: [[kernel<template arguments>, registers, spill stores,
-    spill loads], ...]} of K1's and K6's sources, names demangled by
+    spill loads], ...]} of the stencils' sources, names demangled by
     c++filt."""
     from mugiq_tpu_torch.kernels import build
     res = {}
-    for name in K1_K6_SOURCES:
+    for name in stencil_sources():
         inst = ptxas_instances(build.build_log(name))
         names = [i[0] for i in inst]
         if names and shutil.which("c++filt"):
@@ -1148,8 +1166,9 @@ def phase_hop(dev, stats, counters, launches):
     import torch
     from mugiq_tpu_torch.dirac_kernel import SchurDiracKernel
     from mugiq_tpu_torch.kernels.hop_dir import dslash_hop_dir
-    from mugiq_tpu_torch.kernels.wilson import (FLOP_PER_SITE, dslash_hop,
-                                                dslash_hop_plain, wilson_m)
+    from mugiq_tpu_torch.kernels.wilson import (FLOP_PER_SITE, aligned_pairs,
+                                                dslash_hop, dslash_hop_plain,
+                                                launch_plan, wilson_m)
     from mugiq_tpu_torch.schur_kernel import (SchurDiracKernelPacked,
                                               pack_parity, unpack_parities)
 
@@ -1159,13 +1178,16 @@ def phase_hop(dev, stats, counters, launches):
     psi = torch.randn((T, 24, Z, Y * X), generator=g, device=dev)
     U = torch.randn((T, 4, 18, Z, Y * X), generator=g, device=dev) * 0.5
     types = {"f32": torch.float32, "bf16": torch.bfloat16}
-    worst = (0.0, 0.0)
+    forms = stats.setdefault("forms", {}).setdefault("dslash_hop", {})
+    worst, worst_bf16 = (0.0, 0.0), 0.0
     for pp, pdt in types.items():
         ps = psi.to(pdt)
         for lp, ldt in types.items():
             Ul = U.to(ldt)
             for op, odt in types.items():
                 out = torch.empty(psi.shape, dtype=odt, device=dev)
+                src = launch_plan("dslash_hop", 1, X, pp == "bf16",
+                                  aligned_pairs(ps, Ul, out)).source
                 for dagger in (False, True):
                     ref = dslash_hop_plain(ps, Ul, dagger, Y, odt)
                     got = dslash_hop(ps, Ul, dagger, Y, out_dtype=odt)
@@ -1173,6 +1195,8 @@ def phase_hop(dev, stats, counters, launches):
                     err, rel = compare(key, got, ref)
                     if op == "f32":
                         worst = max(worst, (rel, err))
+                    else:
+                        worst_bf16 = max(worst_bf16, err)
                     del ref, got
                     ms = cuda_ms(lambda: dslash_hop(ps, Ul, dagger, Y,
                                                     out=out), 20)
@@ -1183,18 +1207,58 @@ def phase_hop(dev, stats, counters, launches):
                         f"{err:.2e}, tol {TOL[key]:.1e})  kernel {ms:.3f} ms "
                         f"({FLOP_PER_SITE * vol / ms / 1e6:.0f} GFLOP/s; "
                         f"bound {b['bound_ms']:.3f} ms by {b['bound_by']}, "
-                        f"{b['bound_ms'] / ms:.2f} of it)")
+                        f"{b['bound_ms'] / ms:.2f} of it; {src}.cu)")
                     if (pp, lp, op, dagger) == ("f32", "f32", "f32", False):
                         pms = cuda_ms(lambda: dslash_hop_plain(ps, Ul, dagger,
                                                                Y), 5, 1)
                         say(f"K4 f32 D: twin {pms:.3f} ms")
                         stats["dslash_hop"] = {"ms": ms, "plain_ms": pms,
                                                "library_ms": None, **b}
+                    if (pp, lp, op, dagger) == ("bf16", "bf16", "bf16",
+                                                False):
+                        pms = cuda_ms(lambda: dslash_hop_plain(ps, Ul, dagger,
+                                                               Y), 5, 1)
+                        say(f"K4 all-bf16 D: twin {pms:.3f} ms")
+                        forms["all_bf16"] = {
+                            "ms": ms, "plain_ms": pms, **b,
+                            "source": f"mugiq_tpu_torch/kernels/csrc/"
+                                      f"{src}.cu"}
                 del out
             del Ul
         del ps
         torch.cuda.empty_cache()
     stats["dslash_hop"]["max_abs_err"] = worst[1]
+
+    # the one-site bf16 instance (an odd X or a misaligned base), forced
+    # by a base two bytes off a four-byte boundary: against its twin, and
+    # timed beside the pair form above
+    ps = misaligned(psi.to(torch.bfloat16))
+    for lp, ldt in types.items():
+        Ul = U.to(ldt)
+        out = misaligned(torch.empty_like(ps))
+        plan = launch_plan("dslash_hop", 1, X, True,
+                           aligned_pairs(ps, Ul, out))
+        if plan.pair:
+            raise AssertionError("K4: a misaligned base planned as pairs")
+        for dagger in (False, True):
+            got = dslash_hop(ps, Ul, dagger, Y, out=out)
+            err, rel = compare("dslash_hop_bf16", got,
+                               dslash_hop_plain(ps, Ul, dagger, Y))
+            worst_bf16 = max(worst_bf16, err)
+            say(f"K4 dslash_hop bf16 spinors, {lp} links, one site a thread "
+                f"({plan.source}.cu, misaligned base) dagger={int(dagger)}: "
+                f"rel err {rel:.2e} (abs {err:.2e}, tol "
+                f"{TOL['dslash_hop_bf16']:.1e})")
+        ms = cuda_ms(lambda: dslash_hop(ps, Ul, False, Y, out=out), 20)
+        b = bound(nbytes(ps, Ul, out), FLOP_PER_SITE * vol)
+        say(f"K4 dslash_hop bf16 spinors, {lp} links, out bf16, one site a "
+            f"thread D: kernel {ms:.3f} ms (bound {b['bound_ms']:.3f} ms, "
+            f"{b['bound_ms'] / ms:.2f} of it)")
+        if lp == "bf16":
+            forms["all_bf16"]["one_site_ms"] = ms
+        del Ul, out
+    forms["bf16_max_abs_err"] = worst_bf16
+    del ps
 
     # K4 = the eight K5 hops; psi - kappa K4(psi) = K1(psi) (Wilson)
     kappa = 0.12
@@ -1985,11 +2049,11 @@ def halo_bf16_psi(dev, stats):
                     mr.local_block(got)[...] = blk(mr, (
                         mr.ext_block(psi, t=True), mr.ext_block(U, t=False),
                         mr.ext_block(Ut, t=False)))
-                _, rel = compare("slab_bf16", got, ref)
+                err, rel = compare("slab_bf16", got, ref)
                 say(f"slab tie {kern} bf16 spinors, {prec} links (mesh 2 1, "
                     f"both ranks) vs {'K1 clover' if kern == 'K7a' else 'K4'}"
                     f" bf16 spinors, dagger={int(dagger)}: rel {rel:.2e} "
-                    f"(tol 2^-7)")
+                    f"(tol 2^-7), max abs diff {err:.1e}")
                 del ref, got
         del pe, Ue, Ute, Al
 
@@ -2046,8 +2110,119 @@ def halo_bf16_psi(dev, stats):
             del Uo, Ui, Uti, Uoe, Uie, Ute
         del pe, po_loc, Al, U, A, Ut, Ap
         torch.cuda.empty_cache()
+    halo_bf16_pairs(dev, psi, U32, A32, kappa, forms, worst)
     for k, f in forms.items():
         f["bf16_psi_max_abs_err"] = worst[k]
+
+
+def halo_bf16_pairs(dev, psi, U32, A32, kappa, forms, worst):
+    """K7a's and K4-halo's bf16-spinor pair instances of the z and y halo
+    forms (rank 0 of 2 2 and 2 2 2 at 32^3x64) against their twins, the
+    split bit for bit; then the one-site bf16 instance, forced by a base
+    two bytes off a four-byte boundary, at the 2 1 rank-0 block, against
+    its twin and timed beside the pair form (forms' one_site_ms)."""
+    import torch
+    from mugiq_tpu_torch.kernels.wilson import (FLOP_PER_SITE, aligned_pairs,
+                                                dslash_hop_halo,
+                                                dslash_hop_halo_plain,
+                                                launch_plan, wilson_m_halo,
+                                                wilson_m_halo_plain)
+    from mugiq_tpu_torch.parallel.mesh import LatticeMesh
+
+    T, Z, Y, X = KERNEL_SHAPE
+    dims = (X, Y, Z, T)
+    bf = torch.bfloat16
+
+    def held(kern, tag, fn, plain, Tl):
+        """fn(rows=, out=) against plain() and its split; the abs error."""
+        got = fn()
+        err, rel = compare(f"{kern}_bf16", got, plain())
+        split = torch.full_like(got, float("nan"))
+        fn(rows=(1, Tl - 2, 1), out=split)
+        fn(rows=(0, 2, Tl - 1), out=split)
+        if not torch.equal(split, got):
+            raise AssertionError(f"{kern} {tag}: the interior / boundary "
+                                 f"launches differ from the single pass")
+        say(f"{kern} {tag}: rel err vs twin {rel:.2e} (tol 2^-7), split "
+            f"bit-identical")
+        worst[kern] = max(worst[kern], err)
+        return got
+
+    for mesh in ((2, 2), (2, 2, 2)):
+        m = LatticeMesh(mesh, dims, rank=0, device=dev)
+        ze, ye, Yl, Tl = m.z_ext, m.y_ext, m.local["y"], m.local["t"]
+        ext = dict(z=ze, y=ye)
+        tag = " ".join(map(str, mesh))
+        for prec, dt in (("f32", torch.float32), ("bf16", bf)):
+            U = U32.to(dt)
+            pe = m.ext_block(psi, t=True, **ext)
+            Ue = m.ext_block(U, t=False, **ext)
+            Ute = m.ext_block(torch.roll(U[:, 3], 1, 0), t=False, **ext)
+            Al = m.local_block(A32.to(dt)).contiguous()
+            for kern in ("wilson_m_halo", "dslash_hop_halo"):
+                if not launch_plan(kern, 1, X, True,
+                                   aligned_pairs(pe, Ue, Ute, Al)).pair:
+                    raise AssertionError(f"{kern}: mesh {tag} not paired")
+            for dagger in (False, True):
+                for A144 in (None, Al):
+                    held("wilson_m_halo", f"pairs mesh {tag} rank 0 bf16 "
+                         f"spinors, {prec} links, clover="
+                         f"{int(A144 is not None)} dagger={int(dagger)}",
+                         lambda **k: wilson_m_halo(pe, Ue, Ute, A144, kappa,
+                                                   dagger, Yl, ze, ye, **k),
+                         lambda: wilson_m_halo_plain(pe, Ue, Ute, A144, kappa,
+                                                     dagger, Yl, ze, ye), Tl)
+                held("dslash_hop_halo", f"pairs mesh {tag} rank 0 bf16 "
+                     f"spinors, {prec} links, dagger={int(dagger)}",
+                     lambda **k: dslash_hop_halo(pe, Ue, Ute, dagger, Yl, ze,
+                                                 ye, **k),
+                     lambda: dslash_hop_halo_plain(pe, Ue, Ute, dagger, Yl,
+                                                   ze, ye), Tl)
+            del U, pe, Ue, Ute, Al
+            torch.cuda.empty_cache()
+
+    m = LatticeMesh((2, 1), dims, rank=0, device=dev)
+    Tl = m.local["t"]
+    sites = Tl * Z * Y * X
+    pe = misaligned(m.ext_block(psi, t=True))
+    for prec, dt in (("f32", torch.float32), ("bf16", bf)):
+        key = "bf16_psi" if prec == "f32" else "all_bf16"
+        U = U32.to(dt)
+        Ue = m.ext_block(U, t=False)
+        Ute = m.ext_block(torch.roll(U[:, 3], 1, 0), t=False)
+        Al = m.local_block(A32.to(dt)).contiguous()
+        # (kernel, form, its wrapper and twin, operands, timed)
+        for kern, tag, fn, plain, args, timed in (
+                ("wilson_m_halo", "Wilson M", wilson_m_halo,
+                 wilson_m_halo_plain,
+                 (pe, Ue, Ute, None, kappa, False, Y, False, False), True),
+                ("wilson_m_halo", "clover M^dag", wilson_m_halo,
+                 wilson_m_halo_plain,
+                 (pe, Ue, Ute, Al, kappa, True, Y, False, False), False),
+                ("dslash_hop_halo", "D", dslash_hop_halo,
+                 dslash_hop_halo_plain,
+                 (pe, Ue, Ute, False, Y, False, False), True)):
+            plan = launch_plan(kern, 1, X, True, aligned_pairs(pe, Ue, Ute))
+            if plan.pair:
+                raise AssertionError(f"{kern}: a misaligned base planned as "
+                                     f"pairs")
+            got = held(kern, f"one site a thread ({plan.source}.cu, "
+                       f"misaligned base) mesh 2 1 rank 0 bf16 spinors, "
+                       f"{prec} links, {tag}",
+                       lambda **k: fn(*args, **k), lambda: plain(*args), Tl)
+            if timed:
+                out = torch.empty_like(got)
+                ms = cuda_ms(lambda: fn(*args, out=out), 20)
+                b = bound(nbytes(pe, Ue, Ute, out), FLOP_PER_SITE * sites)
+                forms[kern][key]["one_site_ms"] = ms
+                say(f"{kern} bf16 spinors, {prec} links, {tag}, one site a "
+                    f"thread, mesh 2 1 rank 0: kernel {ms:.3f} ms (bound "
+                    f"{b['bound_ms']:.3f} ms, {b['bound_ms'] / ms:.2f} of "
+                    f"it); two sites a thread {forms[kern][key]['ms']:.3f} "
+                    f"ms")
+                del out
+            del got
+        del U, Ue, Ute, Al
 
 
 def mesh_worker(out, spec):

@@ -78,15 +78,17 @@ def _build_lock():
 #: each source's nvcc seconds with 8 at once on an 8-core H100 host
 #: (chip_smoke.py's build line): the build order, longest first
 NVCC_SECONDS = {
-    "wilson_m_halo_psi_bf16": 52.3, "wilson_m_halo": 45.6,
-    "parity_hop_halo_psi_bf16": 44.6, "parity_hop_halo_all_bf16": 44.1,
-    "parity_hop_halo_bf16": 41.8, "parity_hop_halo": 41.7,
-    "wilson_m_staged_pair": 38.2, "parity_hop_staged_pair": 36.5,
-    "parity_hop_pair": 33.1, "wilson_m_pair": 33.0, "dslash_hop": 31.9,
-    "parity_hop": 31.8, "dslash_hop_halo_psi_bf16": 22.0,
-    "parity_hop_staged": 21.9, "dslash_hop_halo": 20.9,
-    "wilson_m_staged": 20.6, "parity_hop_bf16": 20.4, "wilson_m_bf16": 18.5,
-    "wilson_m": 17.2, "hop_dir": 7.1, "contract": 3.6}
+    "wilson_m_halo_pair": 89.3, "wilson_m_halo": 53.6,
+    "wilson_m_halo_psi_bf16": 53.5, "parity_hop_halo_psi_bf16": 48.8,
+    "parity_hop_halo_bf16": 48.1, "parity_hop_halo_all_bf16": 47.4,
+    "parity_hop_halo": 45.5, "dslash_hop_halo_pair": 43.1,
+    "parity_hop_staged_pair": 33.6, "wilson_m_staged_pair": 33.0,
+    "parity_hop": 29.6, "parity_hop_pair": 29.0, "dslash_hop_pair": 28.4,
+    "wilson_m_pair": 28.0, "dslash_hop": 25.7,
+    "dslash_hop_halo_psi_bf16": 21.7, "dslash_hop_halo": 21.6,
+    "parity_hop_staged": 19.6, "wilson_m_staged": 19.0, "wilson_m": 18.6,
+    "parity_hop_bf16": 18.0, "wilson_m_bf16": 17.9, "hop_dir": 6.4,
+    "contract": 2.4}
 
 
 def build_order(names) -> list:

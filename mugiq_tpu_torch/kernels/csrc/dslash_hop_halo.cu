@@ -10,6 +10,6 @@ extern "C" int mugiq_dslash_hop_halo(const void* psi_ext, const void* U, const v
                                      void* out, int Zl, int Yl, int X, int t0, int nrows,
                                      int tstep, int ext, int dagger, int link_bf16,
                                      void* stream) {
-  return dslash_hop_halo_entry<float>(psi_ext, U, Ut, out, Zl, Yl, X, t0, nrows, tstep,
-                                      ext, dagger, link_bf16, stream);
+  return dslash_hop_halo_entry<1, float>(psi_ext, U, Ut, out, Zl, Yl, X, t0, nrows, tstep,
+                                         ext, dagger, link_bf16, stream);
 }

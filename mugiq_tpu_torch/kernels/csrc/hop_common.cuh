@@ -1,20 +1,21 @@
-// Shared device code of the hopping-term kernels (K1 wilson_m.cu, K4
-// dslash_hop.cu, K5 hop_dir.cu, K6 parity_hop.cu, K7 wilson_m_halo.cuh /
-// parity_hop_halo.cuh): the half-spinor projector tables, the one-hop
-// helper, the eight hops of one site of a full-volume field, and the
-// chiral clover-block row; and the tile helpers of the batched and bf16
-// forms of K1 and K6 (wilson_m_tile.cuh, parity_hop_tile.cuh): K
-// x-adjacent sites of one thread, NB vectors of one tile, each link read
-// once for the tile.
+// Shared device code of the hopping-term kernels (K1 wilson_m.cuh, K4
+// dslash_hop.cuh, K5 hop_dir.cu, K6 parity_hop.cuh, K7a / K4-halo
+// wilson_m_halo.cuh, K7b parity_hop_halo.cuh): the half-spinor projector
+// tables, the one-hop helper and the chiral clover-block row (K5, K7b);
+// and the tile helpers of K1, K4, K6, K7a and K4-halo: K x-adjacent sites
+// of one thread, the eight hops of them, their output, and for K1's and
+// K6's batches a block tile of vectors sharing each link.
 //
 // Field layouts (sites minor; S is the stride between component planes,
 // the number of sites of one t-slice):
-//   spinor  comp = r*12 + s*3 + c                   (f32, or bf16 for K1, K4, K6)
+//   spinor  comp = r*12 + s*3 + c                   (f32 or bf16)
 //   link    comp = r*9 + a*3 + b                    (f32 or bf16)
 //   clover  idx  = ((chi*6 + k)*6 + j)*2 + r        (f32 or bf16)
 // Loads of bf16 upcast to f32; all arithmetic is f32.
 
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -117,41 +118,6 @@ __device__ __forceinline__ void hop(const PT* __restrict__ p, const LT* __restri
       acc[s][c].y += v.y;
     }
   }
-}
-
-// Offsets, within one t-slice, of a site and of its x/y/z neighbours.
-struct Nbr {
-  long long c, xp, xm, yp, ym, zp, zm;
-};
-
-// D psi at one site (D^dag psi with DAG: the two projectors swap), the
-// eight directed hops in K1's order x, y, z, t, forward before backward:
-//   (1 - g_mu) U_mu(x) psi(x+mu) + (1 + g_mu) U_mu(x-mu)^dag psi(x-mu).
-// pc / pp / pm: comp 0 of the spinor t-slices t, t+1, t-1; uc: comp 0 of
-// the links [4][18] of slice t; utm: comp 0 of the t-links [18] of slice
-// t-1; S: the plane stride of all of them; n: the site's and its
-// neighbours' offsets within a slice.
-template <bool DAG, typename PT, typename LT>
-__device__ __forceinline__ void hop8(const PT* __restrict__ pc, const PT* __restrict__ pp,
-                                     const PT* __restrict__ pm, const LT* __restrict__ uc,
-                                     const LT* __restrict__ utm, long long S, const Nbr& n,
-                                     float2 acc[4][3]) {
-  // forward hops use 'fwd' (1 - g) for D and 'bwd' (1 + g) for D^dag
-  constexpr int FF = DAG ? 1 : 0;
-  constexpr int FB = DAG ? 0 : 1;
-  const long long u_mu = 18 * S;
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) acc[s][c] = make_float2(0.f, 0.f);
-  hop<0, FF, false>(pc + n.xp, uc + 0 * u_mu + n.c, S, acc);
-  hop<0, FB, true>(pc + n.xm, uc + 0 * u_mu + n.xm, S, acc);
-  hop<1, FF, false>(pc + n.yp, uc + 1 * u_mu + n.c, S, acc);
-  hop<1, FB, true>(pc + n.ym, uc + 1 * u_mu + n.ym, S, acc);
-  hop<2, FF, false>(pc + n.zp, uc + 2 * u_mu + n.c, S, acc);
-  hop<2, FB, true>(pc + n.zm, uc + 2 * u_mu + n.zm, S, acc);
-  hop<3, FF, false>(pp + n.c, uc + 3 * u_mu + n.c, S, acc);
-  hop<3, FB, true>(pm + n.c, utm + n.c, S, acc);
 }
 
 // Row (s, c) of the chiral 6x6 clover block times a spinor:
@@ -271,11 +237,12 @@ struct TileNbr {
 };
 
 // Blocks of 128 threads that ptxas must fit on one SM, which caps its
-// registers at 65536 / 128 / blocks: the one-site kernel 3 (168
-// registers), a pair 3 with bf16 links and 1 with f32 links, a block
-// tile 4 (128) with one site a thread and 3 with pairs.  Left alone,
-// ptxas takes 255 registers (two blocks) and runs slower; tighter caps
-// spill (the caps timed against each other: PERF.md section 6).
+// registers at 65536 / 128 / blocks, for K1, K4 and K6: the one-site
+// kernel 3 (168 registers), a pair 3 with bf16 links and 1 with f32
+// links, a block tile 4 (128) with one site a thread and 3 with pairs.
+// Left alone, ptxas takes 255 registers (two blocks) and runs slower;
+// tighter caps spill (the caps timed against each other: PERF.md
+// section 6).  The halo kernel has its own (wilson_m_halo.cuh).
 template <int K, bool STAGED, typename LT>
 __host__ __device__ constexpr int min_blocks() {
   if (STAGED) return K == 1 ? 4 : 3;
@@ -377,10 +344,10 @@ __device__ __forceinline__ void apply_k(const PT* __restrict__ p, L ps, long lon
   recon_k<MU, F, K>(g, acc);
 }
 
-// Where the link of hop H (0-7: x, y, z, t, forward before backward,
-// hop8's order) is read at the thread's K sites, and its row a: from uf
-// at the sites for the forward hops, from ub at the neighbours for the
-// backward ones (utm: the t-links of slice t-1).
+// Where the link of hop H (0-7: x, y, z, t, forward before backward) is
+// read at the thread's K sites, and its row a: from uf at the sites for
+// the forward hops, from ub at the neighbours for the backward ones (utm:
+// the t-links of slice t-1).
 template <int H, int K, typename LT>
 __device__ __forceinline__ void hop_link_row(const LT* __restrict__ uf,
                                              const LT* __restrict__ ub,
@@ -544,6 +511,101 @@ __device__ __forceinline__ float2 row_dot(const float2 (&row)[6], const float2 (
 #pragma unroll
   for (int j = 0; j < 6; ++j) d = cfma(row[j], w[j], d);
   return d;
+}
+
+// The indices of a thread's K sites starting at fused site i (t-major) of
+// a full-volume field (K1, K4): t, the sites' neighbours within slice t,
+// and t+1 / t-1.
+template <int K>
+struct SiteK {
+  int t, tp, tm;
+  TileNbr<K> n;
+};
+
+template <int K>
+__device__ __forceinline__ SiteK<K> site_k(long long i, int T, int Z, int Y, int X) {
+  using Ln = Lanes<K>;
+  const long long YX = (long long)Y * X;
+  const long long S = YX * Z;
+  const int t = (int)(i / S);
+  const long long zyx = i - (long long)t * S;
+  const int z = (int)(zyx / YX);
+  const int y = (int)((zyx / X) % Y);
+  const int x = (int)(zyx % X);
+  const int yp = y + 1 == Y ? 0 : y + 1, ym = y == 0 ? Y - 1 : y - 1;
+  const int zp = z + 1 == Z ? 0 : z + 1, zm = z == 0 ? Z - 1 : z - 1;
+  const long long zy = (long long)z * YX + (long long)y * X;
+  // x neighbours of sites x .. x+K-1 in their row: x+1 .. x+K forward,
+  // x-1 .. x+K-2 backward
+  const int c1 = x + 1 == X ? 0 : x + 1, c2 = x + 2 >= X ? x + 2 - X : x + 2;
+  const int cm = x == 0 ? X - 1 : x - 1;
+  return SiteK<K>{t, t + 1 == T ? 0 : t + 1, t == 0 ? T - 1 : t - 1,
+                  TileNbr<K>{Ln::at(zyx),
+                             Ln::at((long long)z * YX + (long long)yp * X + x),
+                             Ln::at((long long)z * YX + (long long)ym * X + x),
+                             Ln::at((long long)zp * YX + (long long)y * X + x),
+                             Ln::at((long long)zm * YX + (long long)y * X + x),
+                             Ln::xs(zy, c1, c2), Ln::xs(zy, cm, x)}};
+}
+
+// The diagonal of an output: none (K4, K4-halo: the bare hop), Wilson
+// (psi), clover (the chiral blocks times psi)
+enum Diag { kHop = 0, kWilson = 1, kClover = 2 };
+
+// The output of K sites of one vector from their hop sum acc: out = acc
+// (kHop), or out = A psi - kappa acc (A = 1 for kWilson), each operation
+// rounded once, the store rounding to the output type OT.  psi: comp 0 of
+// its t-slice, plane stride Sp, the sites at cp; out and the clover
+// blocks: comp 0 of their t-slices, plane stride So, the sites at co (K1
+// and K4 read and write one layout; K7a reads a halo-extended psi).
+template <int DIAG, int K, typename PT, typename OT, typename LT>
+__device__ __forceinline__ void site_out(const PT* __restrict__ pc, long long Sp,
+                                         typename Lanes<K>::At cp, OT* __restrict__ o,
+                                         const LT* __restrict__ at, long long So,
+                                         typename Lanes<K>::At co, float kappa,
+                                         const float2 (&acc)[K][4][3]) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float re[K], im[K];
+      if constexpr (DIAG == kHop) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          re[k] = acc[k][s][c].x;
+          im[k] = acc[k][s][c].y;
+        }
+      } else {
+        float2 d[K];
+        if constexpr (DIAG == kClover) {
+          float2 row[K][6], w[K][6];
+          clover_row_k<K>(at, co, So, s, c, row);
+          chiral_k<K>(pc, cp, Sp, s, w);
+#pragma unroll
+          for (int k = 0; k < K; ++k) d[k] = row_dot(row[k], w[k]);
+        } else {
+          float dr[K], di[K];
+          ldk(pc + (long long)(s * 3 + c) * Sp, cp, dr);
+          ldk(pc + (long long)(12 + s * 3 + c) * Sp, cp, di);
+#pragma unroll
+          for (int k = 0; k < K; ++k) d[k] = make_float2(dr[k], di[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          re[k] = __fmaf_rn(-kappa, acc[k][s][c].x, d[k].x);
+          im[k] = __fmaf_rn(-kappa, acc[k][s][c].y, d[k].y);
+        }
+      }
+      stk(o + (long long)(s * 3 + c) * So, co, re);
+      stk(o + (long long)(12 + s * 3 + c) * So, co, im);
+    }
+  }
+}
+
+// K = 2 needs the x extent even and every operand's base two words of its
+// type aligned (the pairs' loads and stores)
+inline bool pair_aligned(const void* p, size_t word) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % (2 * word) == 0;
 }
 
 }  // namespace

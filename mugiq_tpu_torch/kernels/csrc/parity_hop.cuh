@@ -10,8 +10,6 @@
 
 #pragma once
 
-#include <cstdint>
-
 #include "hop_common.cuh"
 
 namespace {
@@ -245,16 +243,11 @@ int parity_hop_entry(const void* psi_in, const void* Uo, const void* Ui, const v
     return static_cast<int>(cudaErrorInvalidValue);
   const int clover = mode & 1, combine = mode >> 1;
   const void* A = combine ? Acomb : Apost;
-  if (K == 2) {
-    const uintptr_t lw = link_bf16 ? 2 * sizeof(__nv_bfloat16) : 2 * sizeof(float);
-    const uintptr_t sw = 2 * sizeof(PT);
-    auto off = [](const void* p, uintptr_t w) {
-      return p != nullptr && reinterpret_cast<uintptr_t>(p) % w != 0;
-    };
-    if (Xh % 2 || off(psi_in, sw) || off(psi_out, sw) || off(out, sw) || off(Uo, lw) ||
-        off(Ui, lw) || off(A, lw))
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const size_t lw = link_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
+  if (K == 2 && (Xh % 2 || !pair_aligned(psi_in, sizeof(PT)) ||
+                 !pair_aligned(psi_out, sizeof(PT)) || !pair_aligned(out, sizeof(PT)) ||
+                 !pair_aligned(Uo, lw) || !pair_aligned(Ui, lw) || !pair_aligned(A, lw)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const K6Args a{psi_in, Uo, Ui, A, psi_out, out, T, Z, Y, Xh, parity_out, combine,
                  kappa2, batch, static_cast<cudaStream_t>(stream)};
   if (link_bf16) dispatch_pass<K, STAGED, __nv_bfloat16, PT>(dagger, clover, a);

@@ -7,82 +7,9 @@
 
 #pragma once
 
-#include <cstdint>
-
 #include "hop_common.cuh"
 
 namespace {
-
-// The indices of a thread's K sites starting at fused site i (t-major):
-// t, the sites' neighbours within slice t, and t+1 / t-1.
-template <int K>
-struct SiteK {
-  int t, tp, tm;
-  TileNbr<K> n;
-};
-
-template <int K>
-__device__ __forceinline__ SiteK<K> site_k(long long i, int T, int Z, int Y, int X) {
-  using Ln = Lanes<K>;
-  const long long YX = (long long)Y * X;
-  const long long S = YX * Z;
-  const int t = (int)(i / S);
-  const long long zyx = i - (long long)t * S;
-  const int z = (int)(zyx / YX);
-  const int y = (int)((zyx / X) % Y);
-  const int x = (int)(zyx % X);
-  const int yp = y + 1 == Y ? 0 : y + 1, ym = y == 0 ? Y - 1 : y - 1;
-  const int zp = z + 1 == Z ? 0 : z + 1, zm = z == 0 ? Z - 1 : z - 1;
-  const long long zy = (long long)z * YX + (long long)y * X;
-  // x neighbours of sites x .. x+K-1 in their row: x+1 .. x+K forward,
-  // x-1 .. x+K-2 backward
-  const int c1 = x + 1 == X ? 0 : x + 1, c2 = x + 2 >= X ? x + 2 - X : x + 2;
-  const int cm = x == 0 ? X - 1 : x - 1;
-  return SiteK<K>{t, t + 1 == T ? 0 : t + 1, t == 0 ? T - 1 : t - 1,
-                  TileNbr<K>{Ln::at(zyx),
-                             Ln::at((long long)z * YX + (long long)yp * X + x),
-                             Ln::at((long long)z * YX + (long long)ym * X + x),
-                             Ln::at((long long)zp * YX + (long long)y * X + x),
-                             Ln::at((long long)zm * YX + (long long)y * X + x),
-                             Ln::xs(zy, c1, c2), Ln::xs(zy, cm, x)}};
-}
-
-// out = A psi - kappa acc at K sites of one vector (pc, o: comp 0 of its
-// psi / out t-slice; at: comp 0 of the clover t-slice).
-template <bool CLOVER, int K, typename PT, typename LT>
-__device__ __forceinline__ void wilson_out(const PT* __restrict__ pc, PT* __restrict__ o,
-                                           const LT* __restrict__ at, long long S,
-                                           typename Lanes<K>::At c0, float kappa,
-                                           const float2 (&acc)[K][4][3]) {
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      float2 d[K];
-      if constexpr (CLOVER) {
-        float2 row[K][6], w[K][6];
-        clover_row_k<K>(at, c0, S, s, c, row);
-        chiral_k<K>(pc, c0, S, s, w);
-#pragma unroll
-        for (int k = 0; k < K; ++k) d[k] = row_dot(row[k], w[k]);
-      } else {
-        float dr[K], di[K];
-        ldk(pc + (long long)(s * 3 + c) * S, c0, dr);
-        ldk(pc + (long long)(12 + s * 3 + c) * S, c0, di);
-#pragma unroll
-        for (int k = 0; k < K; ++k) d[k] = make_float2(dr[k], di[k]);
-      }
-      float re[K], im[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        re[k] = __fmaf_rn(-kappa, acc[k][s][c].x, d[k].x);
-        im[k] = __fmaf_rn(-kappa, acc[k][s][c].y, d[k].y);
-      }
-      stk(o + (long long)(s * 3 + c) * S, c0, re);
-      stk(o + (long long)(12 + s * 3 + c) * S, c0, im);
-    }
-  }
-}
 
 // One vector, K sites a thread (K = 2: x even), the batch in grid y.
 template <bool DAG, bool CLOVER, int K, typename LT, typename PT>
@@ -101,8 +28,9 @@ wilson_m_direct_kernel(const PT* __restrict__ psi, const LT* __restrict__ U,
   float2 acc[K][4][3];
   hop8_direct<DAG, K>(p + q.t * ps_t, p + q.tp * ps_t, p + q.tm * ps_t, ut, ut,
                       U + q.tm * u_t + 3 * 18 * S, S, q.n, acc);
-  wilson_out<CLOVER, K>(p + q.t * ps_t, out + field + q.t * ps_t,
-                        CLOVER ? A + q.t * 144 * S : nullptr, S, q.n.c, kappa, acc);
+  site_out<CLOVER ? kClover : kWilson, K>(p + q.t * ps_t, S, q.n.c, out + field + q.t * ps_t,
+                                          CLOVER ? A + q.t * 144 * S : nullptr, S, q.n.c,
+                                          kappa, acc);
 }
 
 // The block tile: TILE_SITES threads along the sites (K sites each) times
@@ -136,8 +64,9 @@ wilson_m_staged_kernel(const PT* __restrict__ psi, const LT* __restrict__ U,
   float2 acc[K][4][3];
   hop8_staged<DAG, K>(p + q.t * ps_t, p + q.tp * ps_t, p + q.tm * ps_t, S, q.n, sm, j0, BSK,
                       acc);
-  wilson_out<CLOVER, K>(p + q.t * ps_t, out + field + q.t * ps_t,
-                        CLOVER ? A + q.t * 144 * S : nullptr, S, q.n.c, kappa, acc);
+  site_out<CLOVER ? kClover : kWilson, K>(p + q.t * ps_t, S, q.n.c, out + field + q.t * ps_t,
+                                          CLOVER ? A + q.t * 144 * S : nullptr, S, q.n.c,
+                                          kappa, acc);
 }
 
 template <bool DAG, bool CLOVER, int K, bool STAGED, typename LT, typename PT>
@@ -185,13 +114,10 @@ int wilson_m_entry(const void* psi, const void* U, const void* A, void* out, int
                    void* stream) {
   const int tiles = STAGED ? (batch + TILE_NV - 1) / TILE_NV : batch;
   if (batch < 1 || tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (K == 2) {
-    const uintptr_t lw = link_bf16 ? 2 * sizeof(__nv_bfloat16) : 2 * sizeof(float);
-    const uintptr_t sw = 2 * sizeof(PT);
-    if (X % 2 || reinterpret_cast<uintptr_t>(psi) % sw || reinterpret_cast<uintptr_t>(out) % sw ||
-        reinterpret_cast<uintptr_t>(U) % lw || (clover && reinterpret_cast<uintptr_t>(A) % lw))
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const size_t lw = link_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
+  if (K == 2 && (X % 2 || !pair_aligned(psi, sizeof(PT)) || !pair_aligned(out, sizeof(PT)) ||
+                 !pair_aligned(U, lw) || !pair_aligned(clover ? A : nullptr, lw)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (link_bf16)
     dispatch_k1<K, STAGED, __nv_bfloat16, PT>(psi, U, A, out, T, Z, Y, X, kappa, dagger,

@@ -8,6 +8,6 @@ extern "C" int mugiq_wilson_m_halo(const void* psi_ext, const void* U, const voi
                                    const void* A, void* out, int Zl, int Yl, int X,
                                    int t0, int nrows, int tstep, int ext, float kappa,
                                    int dagger, int clover, int link_bf16, void* stream) {
-  return wilson_m_halo_entry<float>(psi_ext, U, Ut, A, out, Zl, Yl, X, t0, nrows, tstep,
-                                    ext, kappa, dagger, clover, link_bf16, stream);
+  return wilson_m_halo_entry<1, float>(psi_ext, U, Ut, A, out, Zl, Yl, X, t0, nrows, tstep,
+                                       ext, kappa, dagger, clover, link_bf16, stream);
 }

@@ -150,11 +150,11 @@ def parity_hop(psi_in, U_out, U_in, Y: int, parity_out: int, dagger: bool,
 
     bf = torch.bfloat16
     b = psi_in.shape[0] if psi_in.ndim == 5 else 1
-    plan = launch_plan(b, Xh, psi_in.dtype == bf,
+    plan = launch_plan("parity_hop", b, Xh, psi_in.dtype == bf,
                        aligned_pairs(psi_in, U_out, U_in, A_post, psi_out,
                                      A_comb, out))
     with torch.cuda.device(dev):
-        rc = build.entry(plan.source("parity_hop"), ENTRY_ARGTYPES)(
+        rc = build.entry(plan.source, ENTRY_ARGTYPES)(
             psi_in.data_ptr(), U_out.data_ptr(), U_in.data_ptr(),
             ptr(A_post), ptr(psi_out), ptr(A_comb), out.data_ptr(), T, Z, Y,
             Xh, int(parity_out), int(dagger), mode, float(kappa2 or 0.0),

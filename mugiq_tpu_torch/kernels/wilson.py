@@ -7,13 +7,18 @@
   of them in one launch; replaces
   ``mugiq_tpu/pallas/dslash_kernel.py`` ``wilson_m_pallas`` (:395) and
   ``wilson_m_pallas_gl`` (:747), and their vmap over a block.
-* K4 :func:`dslash_hop` (``csrc/dslash_hop.cu``): the bare hopping term
-  D psi / D^dag psi, f32 or bf16 in and out; replaces
-  ``dslash_hop_pallas`` (:436) and ``dslash_hop_pallas_gl`` (:726).
+* K4 :func:`dslash_hop` (``csrc/dslash_hop.cu`` and its pair source;
+  kernel in ``csrc/dslash_hop.cuh``): the bare hopping term D psi /
+  D^dag psi, f32 or bf16 in and out; replaces ``dslash_hop_pallas``
+  (:436) and ``dslash_hop_pallas_gl`` (:726).
 * K7a :func:`wilson_m_halo` and K4-halo :func:`dslash_hop_halo`
-  (``csrc/wilson_m_halo.cuh``): the same on one rank's halo-extended
-  block, f32 or bf16 spinors (the output in psi's dtype); replace the
-  kernels of ``mugiq_tpu/parallel/shard_dslash.py``.
+  (``csrc/wilson_m_halo.cuh``, a source per spinor type and pair form):
+  the same on one rank's halo-extended block, f32 or bf16 spinors (the
+  output in psi's dtype); replace the kernels of
+  ``mugiq_tpu/parallel/shard_dslash.py``.
+
+:func:`launch_plan` picks each call's instance (two sites a thread for
+bf16 spinors where that is legal, block tiles for a batch).
 
 Each launches its CUDA kernel for CUDA tensors and runs its plain PyTorch
 twin (``*_plain``) for CPU tensors; any other device raises.  All are
@@ -39,12 +44,21 @@ ENTRY_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I,
                   _I, _I, _P]
 
 
-#: spinor dtypes of K1 and K6 (the output takes the input's)
+#: spinor dtypes of the stencils (the output takes the input's)
 SPINOR_DTYPES = (torch.float32, torch.bfloat16)
+
+#: the source suffix of each stencil's one-site bf16-spinor instance; K4's
+#: one-site source holds every type
+ONE_SITE_BF16 = {"wilson_m": "_bf16", "parity_hop": "_bf16",
+                 "dslash_hop": "", "wilson_m_halo": "_psi_bf16",
+                 "dslash_hop_halo": "_psi_bf16"}
+#: the stencils that take a batch of fields in one launch
+BATCHED = ("wilson_m", "parity_hop")
 
 
 class LaunchPlan(NamedTuple):
-    """Which instance of K1 or K6 runs a call (one launch)."""
+    """Which instance of a stencil runs a call (one launch)."""
+    kernel: str
     spinor_bf16: bool
     #: two x-adjacent sites a thread, bf16 planes read four bytes at a time
     pair: bool
@@ -52,27 +66,34 @@ class LaunchPlan(NamedTuple):
     #: tiles the batch); else one vector a thread, the batch in grid y
     tiled: bool
 
-    def source(self, kernel: str) -> str:
+    @property
+    def source(self) -> str:
         """The kernel source (``csrc/<source>.cu``) that runs the plan."""
         if self.tiled:
-            return f"{kernel}_staged" + ("_pair" if self.pair else "")
+            return f"{self.kernel}_staged" + ("_pair" if self.pair else "")
         if self.pair:
-            return f"{kernel}_pair"
-        return kernel + ("_bf16" if self.spinor_bf16 else "")
+            return f"{self.kernel}_pair"
+        return self.kernel + (ONE_SITE_BF16[self.kernel] if self.spinor_bf16
+                              else "")
 
 
-def launch_plan(batch: int, x_extent: int, spinor_bf16: bool,
+def launch_plan(kernel: str, batch: int, x_extent: int, spinor_bf16: bool,
                 aligned: bool) -> LaunchPlan:
-    """The launch of a K1 call (x_extent = X) or a K6 call (x_extent =
-    Xh) of `batch` vectors: pairs for bf16 spinors where x_extent is even
-    and every operand's base is two words aligned; block tiles for a
-    batch (of pairs, for bf16); one vector a thread for a single vector
-    and for bf16 spinors that cannot pair."""
+    """The launch of a call of `kernel` (K1 wilson_m, K6 parity_hop, K4
+    dslash_hop, K7a wilson_m_halo, K4-halo dslash_hop_halo) on `batch`
+    vectors whose x extent is x_extent (Xh for K6): pairs for bf16
+    spinors where x_extent is even and every operand's base is two words
+    aligned; block tiles for a batch of K1 or K6 (of pairs, for bf16); one
+    site a thread for f32 spinors and for bf16 spinors that cannot pair."""
+    if kernel not in ONE_SITE_BF16:
+        raise ValueError(f"no launch plan for kernel {kernel!r}")
     if batch < 1:
         raise ValueError(f"empty batch: {batch}")
+    if batch > 1 and kernel not in BATCHED:
+        raise ValueError(f"{kernel} takes one field, not a batch of {batch}")
     pair = spinor_bf16 and x_extent % 2 == 0 and aligned
     tiled = batch > 1 and (pair or not spinor_bf16)
-    return LaunchPlan(bool(spinor_bf16), pair, tiled)
+    return LaunchPlan(kernel, bool(spinor_bf16), pair, tiled)
 
 
 def aligned_pairs(*ts) -> bool:
@@ -209,10 +230,10 @@ def wilson_m(psi, U, A144, kappa: float, dagger: bool, Y: int, out=None):
     if out.data_ptr() == psi.data_ptr():
         raise ValueError("wilson_m: out must not alias psi (neighbour reads)")
     bf = torch.bfloat16
-    plan = launch_plan(b, YX // Y, psi.dtype == bf,
+    plan = launch_plan("wilson_m", b, YX // Y, psi.dtype == bf,
                        aligned_pairs(psi, U, A144, out))
     with torch.cuda.device(dev):
-        rc = build.entry(plan.source("wilson_m"), ENTRY_ARGTYPES)(
+        rc = build.entry(plan.source, ENTRY_ARGTYPES)(
             psi.data_ptr(), U.data_ptr(),
             None if A144 is None else A144.data_ptr(), out.data_ptr(), T, Z,
             Y, YX // Y, float(kappa), int(dagger), int(A144 is not None),
@@ -230,8 +251,8 @@ wilson_m.launches = 0
 # ---------------------------------------------------------------------------
 
 _HOP_DTYPES = (torch.float32, torch.bfloat16)
-#: the C entry point of K4: psi, U, out, T, Z, Y, X, dagger, psi_bf16,
-#: link_bf16, out_bf16, stream
+#: the C entry points of K4's sources: psi, U, out, T, Z, Y, X, dagger,
+#: psi_bf16, link_bf16, out_bf16, stream
 HOP_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
@@ -241,8 +262,8 @@ def dslash_hop(psi, U, dagger: bool, Y: int, out_dtype=None, out=None):
 
     psi [T, 24, Z, Y*X] f32 or bf16; U [T, 4, 18, Z, Y*X] phased links, f32
     or bf16; the result in out_dtype (default: out's dtype if out is given,
-    else psi's), f32 arithmetic.  CUDA tensors launch the kernel, CPU
-    tensors run the twin."""
+    else psi's), f32 arithmetic.  CUDA tensors launch the kernel
+    (launch_plan picks its instance), CPU tensors run the twin."""
     odt = out_dtype or (psi.dtype if out is None else out.dtype)
     if psi.device.type == "cpu":
         res = dslash_hop_plain(psi, U, dagger, Y, odt)
@@ -265,8 +286,10 @@ def dslash_hop(psi, U, dagger: bool, Y: int, out_dtype=None, out=None):
         raise ValueError("dslash_hop: out must not alias psi (neighbour "
                          "reads)")
     bf = torch.bfloat16
+    plan = launch_plan("dslash_hop", 1, YX // Y, psi.dtype == bf,
+                       aligned_pairs(psi, U, out))
     with torch.cuda.device(dev):
-        rc = build.entry("dslash_hop", HOP_ARGTYPES)(
+        rc = build.entry(plan.source, HOP_ARGTYPES)(
             psi.data_ptr(), U.data_ptr(), out.data_ptr(), T, Z, Y, YX // Y,
             int(dagger), int(psi.dtype == bf), int(U.dtype == bf),
             int(odt == bf), build.stream_handle(dev))
@@ -289,12 +312,6 @@ HALO_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
 #: and of K4-halo's: psi_ext, U, Ut, out, Zl, Yl, X, t0, nrows, tstep,
 #: ext, dagger, link_bf16, stream
 HOP_HALO_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-
-
-def halo_source(kernel: str, psi_dtype) -> str:
-    """The source (``csrc/<source>.cu``) of a halo kernel for its spinor
-    type: f32 spinors in ``<kernel>.cu``, bf16 in ``<kernel>_psi_bf16.cu``."""
-    return kernel + ("_psi_bf16" if psi_dtype == torch.bfloat16 else "")
 
 
 def halo_rows(rows, Tl: int) -> list:
@@ -441,6 +458,12 @@ def _halo_cuda(what, psi_ext, U, Ut_shift, Y, z_ext, y_ext, rows, out):
     return out, rows, 2 if y_ext else int(z_ext), Zl, X
 
 
+def halo_plan(kernel, psi_ext, X, *operands) -> LaunchPlan:
+    """The launch plan of a halo kernel's call (one field)."""
+    return launch_plan(kernel, 1, X, psi_ext.dtype == torch.bfloat16,
+                       aligned_pairs(psi_ext, *operands))
+
+
 def wilson_m_halo(psi_ext, U, Ut_shift, A144, kappa: float, dagger: bool,
                   Y: int, z_ext: bool, y_ext: bool, rows=None, out=None):
     """K7a: out[rows] = (A psi - kappa D psi)[rows] (M, or M^dag) of one
@@ -453,8 +476,8 @@ def wilson_m_halo(psi_ext, U, Ut_shift, A144, kappa: float, dagger: bool,
     Yp*X] with Ut_shift[t] = U_t(global t - 1); A144 [Tl, 144, Zl, Y*X] of
     U's dtype or None.  rows (t0, nrows, tstep) or None for all; out
     [Tl, 24, Zl, Y*X] in psi_ext's dtype (f32 arithmetic; rows outside
-    the launch are left as they are).  CUDA tensors launch the kernel,
-    CPU tensors run the twin."""
+    the launch are left as they are).  CUDA tensors launch the kernel
+    (launch_plan picks its instance), CPU tensors run the twin."""
     if psi_ext.device.type == "cpu":
         return _halo_cpu(wilson_m_halo_plain(psi_ext, U, Ut_shift, A144,
                                              kappa, dagger, Y, z_ext, y_ext,
@@ -465,9 +488,9 @@ def wilson_m_halo(psi_ext, U, Ut_shift, A144, kappa: float, dagger: bool,
     if A144 is not None:
         build.require(A144, "A144", (U.shape[0], 144, Zl, Y * X), (U.dtype,),
                       dev)
+    plan = halo_plan("wilson_m_halo", psi_ext, X, U, Ut_shift, A144, out)
     with torch.cuda.device(dev):
-        rc = build.entry(halo_source("wilson_m_halo", psi_ext.dtype),
-                         HALO_ARGTYPES)(
+        rc = build.entry(plan.source, HALO_ARGTYPES)(
             psi_ext.data_ptr(), U.data_ptr(), Ut_shift.data_ptr(),
             None if A144 is None else A144.data_ptr(), out.data_ptr(), Zl, Y,
             X, t0, n, step, ext, float(kappa), int(dagger),
@@ -496,7 +519,8 @@ def dslash_hop_halo(psi_ext, U, Ut_shift, dagger: bool, Y: int, z_ext: bool,
 
     The operands, halo forms and row sets of :func:`wilson_m_halo` (f32 or
     bf16 spinors, f32 or bf16 links, the output in the spinors' dtype).
-    CUDA tensors launch the kernel, CPU tensors run the twin."""
+    CUDA tensors launch the kernel (launch_plan picks its instance), CPU
+    tensors run the twin."""
     if psi_ext.device.type == "cpu":
         return _halo_cpu(dslash_hop_halo_plain(psi_ext, U, Ut_shift, dagger,
                                                Y, z_ext, y_ext, rows),
@@ -504,9 +528,9 @@ def dslash_hop_halo(psi_ext, U, Ut_shift, dagger: bool, Y: int, z_ext: bool,
     out, (t0, n, step), ext, Zl, X = _halo_cuda(
         "dslash_hop_halo", psi_ext, U, Ut_shift, Y, z_ext, y_ext, rows, out)
     dev = out.device
+    plan = halo_plan("dslash_hop_halo", psi_ext, X, U, Ut_shift, out)
     with torch.cuda.device(dev):
-        rc = build.entry(halo_source("dslash_hop_halo", psi_ext.dtype),
-                         HOP_HALO_ARGTYPES)(
+        rc = build.entry(plan.source, HOP_HALO_ARGTYPES)(
             psi_ext.data_ptr(), U.data_ptr(), Ut_shift.data_ptr(),
             out.data_ptr(), Zl, Y, X, t0, n, step, ext, int(dagger),
             int(U.dtype == torch.bfloat16), build.stream_handle(dev))

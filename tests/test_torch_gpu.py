@@ -20,7 +20,8 @@ ulp of the largest output (2^-7 of max |out|).  K1's and K6's batched launch (a 
 fields in one launch) equals single launches exactly, for every batch
 size the tiles cover (a partial last tile too), every spinor and link
 type and every mode; bf16 pairs and the one-site instance where pairs
-are illegal (odd X, a misaligned base) are held to their twins.
+are illegal (odd X, a misaligned base) are held to their twins, for K1,
+K6, K4, K7a and K4-halo.
 """
 
 import pytest
@@ -482,7 +483,7 @@ def test_k1_bf16_pair_and_one_site_on_card(case, b, clover):
          .bfloat16() if clover else None)
     if case == "misaligned":
         psi = _misaligned(psi)
-    plan = launch_plan(b, X, True, aligned_pairs(psi, U, A))
+    plan = launch_plan("wilson_m", b, X, True, aligned_pairs(psi, U, A))
     assert plan.pair == (case == "x2")
     got = wilson_m(psi, U, A, 0.13, False, Y)
     one = torch.stack([wilson_m(p, U, A, 0.13, False, Y) for p in psi])
@@ -513,3 +514,83 @@ def test_k6_bf16_one_site_misaligned_on_card(mode):
     torch.cuda.synchronize()
     assert _close(got, ref, "bf16")
 
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["x2", "odd_x", "misaligned"])
+@pytest.mark.parametrize("link_t", ["f32", "bf16"])
+@pytest.mark.parametrize("out_t", ["f32", "bf16"])
+@pytest.mark.parametrize("dagger", [False, True])
+def test_k4_bf16_pair_and_one_site_on_card(case, link_t, out_t, dagger):
+    """K4 with bf16 spinors: pairs at X = 2 (both x wraps inside one pair),
+    and the one-site instance where pairs are illegal (X = 5; a base two
+    bytes off a four-byte boundary), each within its tolerance of the
+    twin."""
+    from mugiq_tpu_torch.kernels.wilson import aligned_pairs, launch_plan
+    dev = cuda_device()
+    T, Z, Y = 4, 3, 5
+    X = {"x2": 2, "odd_x": 5, "misaligned": 6}[case]
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    psi = torch.from_numpy(rand((T, 24, Z, Y * X), 1)).to(dev).bfloat16()
+    U = torch.from_numpy(rand((T, 4, 18, Z, Y * X), 2, 0.5)).to(dev).to(
+        dt[link_t])
+    if case == "misaligned":
+        psi = _misaligned(psi)
+    out = torch.empty(psi.shape, dtype=dt[out_t], device=dev)
+    plan = launch_plan("dslash_hop", 1, X, True, aligned_pairs(psi, U, out))
+    assert plan.pair == (case == "x2")
+    ref = dslash_hop_plain(psi, U, dagger, Y, dt[out_t])
+    n0 = dslash_hop.launches
+    got = dslash_hop(psi, U, dagger, Y, out=out)
+    torch.cuda.synchronize()
+    assert dslash_hop.launches == n0 + 1
+    assert _close(got, ref, out_t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh", MESH_KINDS, ids=str)
+@pytest.mark.parametrize("case", ["x2", "x6", "misaligned"])
+@pytest.mark.parametrize("link_t", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["k7a", "k7a_clover", "k4h"])
+@pytest.mark.parametrize("dagger", [False, True])
+def test_halo_bf16_pair_and_one_site_on_card(mesh, case, link_t, kernel,
+                                             dagger):
+    """K7a and K4-halo on bf16 psi_ext: pairs at X = 2 (both x wraps inside
+    one pair) and X = 6, and the one-site instance for a base two bytes
+    off a four-byte boundary; each within 2^-7 of max |out| of the twin,
+    the interior / boundary split equal to the single pass."""
+    from mugiq_tpu_torch.kernels.wilson import aligned_pairs, launch_plan
+    dev = cuda_device()
+    dims = (2 if case == "x2" else 6, 6, 4, 8)      # X, Y, Z, T
+    X, Y, Z, T = dims
+    lt = {"f32": torch.float32, "bf16": torch.bfloat16}[link_t]
+    psi = torch.from_numpy(rand((T, 24, Z, Y * X), 1)).to(dev).bfloat16()
+    U = torch.from_numpy(rand((T, 4, 18, Z, Y * X), 2, 0.5)).to(dev).to(lt)
+    A = torch.from_numpy(rand((T, 144, Z, Y * X), 3, 0.2)).to(dev).to(lt)
+    m = LatticeMesh(mesh, dims, rank=_far_rank(mesh, dims), device=dev)
+    ze, ye, Yl, Tl = m.z_ext, m.y_ext, m.local["y"], m.local["t"]
+    ext = dict(z=ze, y=ye)
+    pe = m.ext_block(psi, t=True, **ext)
+    if case == "misaligned":
+        pe = _misaligned(pe)
+    Ue = m.ext_block(U, t=False, **ext)
+    Ute = m.ext_block(torch.roll(U[:, 3], 1, 0), t=False, **ext)
+    if kernel == "k4h":
+        fn, plain, k = dslash_hop_halo, dslash_hop_halo_plain, (
+            pe, Ue, Ute, dagger, Yl, ze, ye)
+    else:
+        Al = m.local_block(A).contiguous() if kernel == "k7a_clover" else None
+        fn, plain, k = wilson_m_halo, wilson_m_halo_plain, (
+            pe, Ue, Ute, Al, 0.13, dagger, Yl, ze, ye)
+    plan = launch_plan("dslash_hop_halo" if kernel == "k4h" else
+                       "wilson_m_halo", 1, X, True, aligned_pairs(pe, Ue, Ute))
+    assert plan.pair == (case != "misaligned")
+    ref = plain(*k)
+    n0 = fn.launches
+    got = fn(*k)
+    split = torch.full_like(got, float("nan"))
+    fn(*k, rows=(1, Tl - 2, 1), out=split)
+    fn(*k, rows=(0, 2, Tl - 1), out=split)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 3
+    assert _close(got, ref, "bf16")
+    assert torch.equal(split, got)
