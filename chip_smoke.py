@@ -98,7 +98,20 @@ Phases (each prints its own lines and raises on failure):
             on one device and over the same meshes (the bf16 Krylov basis
             under --mesh: bf16 spinors through the exchange and K7a), each
             rank held to the one-device run (evals 1e-3, residual < 0.1,
-            data_mom finite) and to the f32 flagship (evals 3e-2).
+            data_mom finite) and to the f32 flagship (evals 3e-2);
+  api-slice  the API path (the CLIs without --production, complex
+            fields, plain PyTorch: no TPU kernel is on it) at 8^3x16 on
+            the card against the same runs on the CPU (in this process,
+            after the card's, every host core): the loop in
+            complex128 (evals 1e-10, data_mom 1e-8 normwise) and complex64
+            (1e-5, 1e-4), and the MG-coarse eigensolve in complex128
+            (coarse evals 1e-10);
+  api-fp64  the error budget of scripts/error_budget16.py on the card:
+            the fp64 API loop at 16^3x32 converged (max residual <= 1e-8),
+            the f32 production loop (< 1e-3; evals within 1e-5 of fp64),
+            and the correlators' relative error (normwise, median, max),
+            with the API path's M and M^dag M times (CUDA events),
+            printed as {"error_budget16": {...}}.
 The ranks of a sharded run are processes of ``python -m
 torch.distributed.run`` running this script with --mesh-worker.
 Each flagship is a main path: every launch counter is set to 0 just
@@ -270,6 +283,41 @@ ARNOLDI_SLICE_ARGS = [
     "--dims", "8", "8", "8", "16", "--gauge", "weak:0.5", "--gauge-seed", "1",
     "--kappa", "0.13", "--eig-nev", "4", "--eig-nkr", "48", "--eig-tol", "1e-6",
     "--eig-max-restarts", "200", "--production"]
+
+# The API path (no --production) at the slice lattice through the loop
+# CLI, in complex128 (--prec double, tol 1e-10) and complex64 (tol 1e-6),
+# and the MG-coarse eigensolve (fp64; 2 levels, block 2^4, 6 null
+# vectors) through the eigensolve CLI, for the api-slice phase.  The
+# Chebyshev window's a_min 0.06 sits 20% above the fourth eigenvalue
+# (0.04987, before a gap to 0.05020): 7 restarts where the slice's 0.15
+# takes 12 (on the CPU, which api-slice runs too)
+API_SLICE_ARGS = [
+    "--dims", "8", "8", "8", "16", "--gauge", "weak:0.5", "--gauge-seed", "1",
+    "--kappa", "0.13", "--eig-nev", "4", "--eig-nkr", "24",
+    "--eig-max-restarts", "100", "--eig-use-poly-acc", "--eig-poly-deg", "16",
+    "--eig-amin", "0.06", "--loop-do-nonlocal", "yes",
+    "--displace-entry-string", "+z:1,2;-t:1"]
+API_SLICE_PREC = {"double": ("1e-10", 1e-10, 1e-8),    # tol, evals, data_mom
+                  "single": ("1e-6", 1e-5, 1e-4)}
+API_MG_ARGS = [
+    "--dims", "8", "8", "8", "16", "--gauge", "weak:0.5", "--gauge-seed", "1",
+    "--kappa", "0.13", "--eig-nev", "4", "--eig-nkr", "24", "--eig-tol",
+    "1e-10", "--eig-max-restarts", "300", "--prec", "double",
+    "--mugiq-use-mg", "yes", "--mg-block-size", "2", "2", "2", "2",
+    "--mg-nvec", "6", "--mg-setup-iters", "6"]
+
+# The JAX package's error budget (scripts/error_budget16.py): 16^3x32,
+# random gauge seed 3, Wilson kappa 0.12, nEv 8, three momenta; the fp64
+# API loop (its cpu_reference recipe) against the f32 production loop
+# (its chip recipe), both on the card, for the api-fp64 phase
+BUDGET_DIMS = (16, 16, 16, 32)
+BUDGET_MOMENTA = [(0, 0, 0), (1, 0, 0), (0, 1, 1)]
+BUDGET_FP64 = dict(n_ev=8, n_kr=24, tol=1e-10, max_restarts=150,
+                   check_interval=5, use_poly_acc=True, poly_deg=16,
+                   a_min=0.25)
+BUDGET_F32 = dict(n_ev=8, n_kr=24, tol=1e-6, max_restarts=60,
+                  check_interval=2, use_poly_acc=True, poly_deg=16,
+                  a_min=0.8)
 
 # T, Z, Y, X of the kernel-vs-twin phases: the flagships' lattice
 KERNEL_SHAPE = (64, 32, 32, 32)
@@ -1577,6 +1625,175 @@ def phase_arnoldi_slice(dev, counters):
         raise AssertionError("M^dag's eigenvalues are not M's conjugates")
 
 
+def api_run(cli_name, argv):
+    """One API-path CLI run (cli_name loop or eig) -> (seconds, restarts,
+    converged, max residual, evals, data_mom or None, evecs)."""
+    from mugiq_tpu_torch.cli import eigensolve as cli_eig
+    from mugiq_tpu_torch.cli import loop as cli_loop
+
+    t0 = time.perf_counter()
+    if cli_name == "loop":
+        loop, eig = cli_loop.run(argv)
+        data_mom = loop.data_mom
+    else:
+        eig = cli_eig.run(argv)[0]
+        data_mom = None
+    out = eig.output
+    return (time.perf_counter() - t0, out.n_restarts, bool(out.converged),
+            float(out.resids.max()), out.evals, data_mom, out.evecs)
+
+
+def api_jobs():
+    """{name: (cli, argv)} of api-slice: the loop in complex128 and
+    complex64, the MG-coarse eigensolve in complex128."""
+    mom = os.path.join(WORK["dir"], "api_moms.txt")
+    with open(mom, "w") as f:
+        f.write(FLAGSHIP_MOMENTA)
+    jobs = {f"loop {prec}": ("loop", API_SLICE_ARGS + [
+                "--prec", prec, "--eig-tol", tol, "--momenta-filename", mom])
+            for prec, (tol, _, _) in API_SLICE_PREC.items()}
+    jobs["MG eigensolve double"] = ("eig", API_MG_ARGS)
+    return jobs
+
+
+def phase_api_slice():
+    """The API path (the CLIs without --production) at 8^3x16 on the card
+    against the same runs on the CPU, one after the other in this
+    process: the loop in complex128 and complex64, the MG-coarse
+    eigensolve in complex128."""
+    import numpy as np
+    import torch
+
+    jobs = api_jobs()
+    card, cpu = {}, {}
+    for name, (cli, argv) in jobs.items():
+        r = api_run(cli, argv + ["--device", "cuda"])
+        if r[6].device.type != "cuda":
+            raise AssertionError(f"api {name}: the API path left the card")
+        card[name] = r
+    # PyTorch's intra-op threads default to every host core
+    say(f"api slice: CPU runs on {torch.get_num_threads()} threads")
+    for name, (cli, argv) in jobs.items():
+        cpu[name] = api_run(cli, argv + ["--device", "cpu"])
+    for name in jobs:
+        for d, r in (("cuda", card[name]), ("cpu", cpu[name])):
+            say(f"api {name} on {d}: {r[0]:.2f} s, converged={r[2]} "
+                f"restarts={r[1]} max resid {r[3]:.2e}")
+            if not r[2]:
+                raise AssertionError(f"api {name} on {d} did not converge")
+        a, b = card[name], cpu[name]
+        ev_rel = float(np.max(np.abs(a[4] - b[4]) / np.abs(b[4])))
+        prec = "double" if "double" in name else "single"
+        _, ev_tol, dm_tol = API_SLICE_PREC[prec]
+        if b[5] is None:
+            # the MG-coarse eigensolve: coarse eigenvalues only
+            dm, dm_tol = 0.0, 0.0
+        else:
+            dm = float(np.linalg.norm(a[5] - b[5]) / np.linalg.norm(b[5]))
+            if not np.all(np.isfinite(a[5])):
+                raise AssertionError(f"api {name}: data_mom not finite")
+        say(f"api {name}, card vs CPU: evals rel {ev_rel:.2e} (tol "
+            f"{ev_tol:g}), data_mom normwise {dm:.2e} (tol {dm_tol:g})")
+        if not (ev_rel <= ev_tol and dm <= dm_tol):
+            raise AssertionError(f"api {name}: card disagrees with CPU")
+
+
+def api_operator_ms(U, gp, ip, dev):
+    """The API path's M and M^dag M at the budget's lattice, complex128
+    and complex64: CUDA events over 20 applications after a warm-up."""
+    import torch
+    from mugiq_tpu_torch.dirac import make_dirac
+
+    out = {}
+    for name, dt in (("complex128", torch.complex128),
+                     ("complex64", torch.complex64)):
+        d = make_dirac(torch.as_tensor(U).to(dev, dt), gp, ip)
+        psi = torch.randn(d.field_shape, dtype=dt, device=dev)
+        for op in ("M", "MdagM"):
+            f = getattr(d, op)
+            f(psi)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(20):
+                f(psi)
+            e1.record()
+            torch.cuda.synchronize()
+            out[f"{op} {name}"] = e0.elapsed_time(e1) / 20
+    return out
+
+
+def phase_api_fp64(dev):
+    """The error budget of scripts/error_budget16.py on the card: the fp64
+    API loop converged (max computeEvals residual <= 1e-8), the f32
+    production loop (< 1e-3, evals within 1e-5 of fp64), and the
+    correlators' relative error, printed."""
+    import numpy as np
+    import torch
+    from mugiq_tpu_torch import api
+    from mugiq_tpu_torch.io.gauge_io import load_gauge_np
+    from mugiq_tpu_torch.lattice import LatticeGeometry
+    from mugiq_tpu_torch.params import (EigParam, GaugeParam, InvertParam,
+                                        LoopParam)
+    from mugiq_tpu_torch.production import compute_loop_production
+
+    geom = LatticeGeometry(BUDGET_DIMS)
+    U = load_gauge_np("random", geom, seed=3)
+    gp = GaugeParam(dims=geom.dims)
+    ip = InvertParam(kappa=0.12)
+    lp = LoopParam(momenta=BUDGET_MOMENTA)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, eig = api.compute_loop(U, gp, ip, EigParam(**BUDGET_FP64), lp,
+                                dtype=torch.complex128, device=dev)
+    torch.cuda.synchronize()
+    t64 = time.perf_counter() - t0
+    r64 = float(eig.output.resids.max())
+    say(f"api-fp64: fp64 API loop {t64:.2f} s, converged="
+        f"{eig.output.converged} restarts={eig.output.n_restarts} max resid "
+        f"{r64:.3e} (gate 1e-8)")
+    t0 = time.perf_counter()
+    res = compute_loop_production(U, gp, ip, EigParam(**BUDGET_F32), lp,
+                                  device=dev)
+    torch.cuda.synchronize()
+    t32 = time.perf_counter() - t0
+    r32 = float(max(res.resids))
+    say(f"api-fp64: f32 production loop {t32:.2f} s, converged="
+        f"{res.converged} restarts={res.n_restarts} max resid {r32:.3e} "
+        f"(gate 1e-3)")
+    ev64 = np.asarray(eig.evals).real
+    ev_rel = float(np.max(np.abs(np.asarray(res.evals) - ev64) / ev64))
+    a, b = np.asarray(res.data_mom), np.asarray(ref.data_mom)
+    if a.shape != b.shape:
+        raise AssertionError(f"data_mom shapes {a.shape} != {b.shape}")
+    # entries above 1e-6 of the largest, as scripts/error_budget16.py
+    # masks the physically zero ones
+    mask = np.abs(b) > 1e-6 * np.abs(b).max()
+    rel = np.abs(a - b)[mask] / np.abs(b)[mask]
+    budget = {
+        "dims": list(BUDGET_DIMS), "n_ev": BUDGET_FP64["n_ev"],
+        "fp64": {"max_resid": r64, "seconds": t64,
+                 "restarts": eig.output.n_restarts,
+                 "converged": bool(eig.output.converged)},
+        "f32": {"max_resid": r32, "seconds": t32,
+                "restarts": res.n_restarts, "converged": bool(res.converged)},
+        "eval_rel_err_max": ev_rel,
+        "correlator_rel_err_normwise": float(np.linalg.norm(a - b)
+                                             / np.linalg.norm(b)),
+        "correlator_rel_err_median": float(np.median(rel)),
+        "correlator_rel_err_max": float(rel.max()),
+        "entries_compared": int(mask.sum()),
+        "card": card_line()}
+    budget["M_ms"] = api_operator_ms(U, gp, ip, dev)
+    say(json.dumps({"error_budget16": budget}))
+    if not (eig.output.converged and r64 <= 1e-8):
+        raise AssertionError(f"api-fp64: the fp64 loop did not converge to "
+                             f"residual 1e-8 ({r64:.3e})")
+    if not (r32 < 1e-3 and ev_rel <= 1e-5 and np.all(np.isfinite(a))):
+        raise AssertionError(f"api-fp64: f32 production residual {r32:.3e} "
+                             f"or evals rel {ev_rel:.3e} out of bounds")
+
+
 def phase_mg_slice(dev):
     """The MG-deflated loop at 8^3x16 through the kernels (card) vs the
     twins (CPU)."""
@@ -2637,7 +2854,7 @@ PHASES = ("build", "kernels", "parity", "bf16", "identity", "slice",
           "pc-slice", "bf16-restart", "bf16-slice", "block-slice",
           "arnoldi-slice", "flagship", "bf16-flagship", "block-flagship",
           "pc-flagship", "hopdir", "mg-slice", "mg-flagship", "hop", "halo",
-          "mesh-slice", "mesh-flagship")
+          "mesh-slice", "mesh-flagship", "api-slice", "api-fp64")
 
 
 def main(argv=None):
@@ -2763,6 +2980,10 @@ def run_phases(phases, dev, counters, stats, launches):
             launches["parity_hop"] = phase_pc_flagship(counters)["parity_hop"]
         elif phase == "mg-slice":
             phase_mg_slice(dev)
+        elif phase == "api-slice":
+            phase_api_slice()
+        elif phase == "api-fp64":
+            phase_api_fp64(dev)
         elif phase == "mesh-slice":
             k7b, k7b_bf16, (k4h, k4h_bf16) = phase_mesh_slice(counters)
             launches["parity_hop_halo"] = k7b

@@ -1,8 +1,15 @@
 """Shared CLI flags (port of the flags mugiq_tpu.cli.common gives the
-production loop and the eigensolve, with the multigrid and parallel
-flags), plus --device and --dist-backend.  Both CLIs define every flag
-of their JAX counterparts with the same choices and defaults; flags that
-drive JAX-only machinery are accepted and logged (log_jax_only)."""
+loop and the eigensolve, with the multigrid and parallel flags), plus
+--device and --dist-backend.  Both CLIs define every flag of their JAX
+counterparts with the same choices and defaults; flags that drive
+JAX-only machinery are accepted and logged (log_jax_only).
+
+As in the JAX CLIs, --production runs the production path (the kernel
+layout, f32 or bf16) and its absence the API path (api.py, complex64 for
+--prec single or complex128 for --prec double).  The API path runs on
+one device: --mesh without --production is a usage error (the JAX API
+branch ignores --mesh).
+"""
 
 import argparse
 
@@ -21,7 +28,8 @@ def add_lattice_args(p: argparse.ArgumentParser):
     g.add_argument("--periodic-t", action="store_true",
                    help="periodic (instead of antiperiodic) fermion time BC")
     g.add_argument("--prec", choices=["single", "double"], default="single",
-                   help="working precision (double not ported)")
+                   help="the API path's precision: complex64 or "
+                        "complex128 (the production path runs f32)")
     g.add_argument("--platform", default=None,
                    help="the JAX platform override: accepted, no effect "
                         "(the port runs on --device)")
@@ -97,8 +105,9 @@ def add_production_args(g):
     """The production flags both JAX CLIs define (--production, --autotune,
     --link-precision, --basis-precision)."""
     g.add_argument("--production", action="store_true",
-                   help="accepted for compatibility: the port always runs "
-                        "the production path")
+                   help="run the production path (kernel layout, f32, the "
+                        "hand-written CUDA kernels) instead of the complex "
+                        "API path")
     g.add_argument("--autotune", action="store_true",
                    help="the JAX variant autotuner: accepted, no effect "
                         "(one kernel per operator, nothing to tune)")
@@ -117,25 +126,39 @@ _JAX_ONLY = (("platform", None), ("compile_cache", "yes"),
              ("autotune", False), ("loop_calc_type", "opt"))
 
 
-def log_jax_only(args) -> None:
+def log_jax_only(args, production: bool = True) -> None:
     """Log, once, the JAX-only flags given at other than their default
     (the platform override, the executable cache, the variant autotuner,
-    the loop's calc type): the port accepts them and has nothing for them
-    to do."""
+    and on the production path the loop's calc type, which the API path
+    reads): the port accepts them and has nothing for them to do."""
     from ..utils import log
 
     given = [f"--{k.replace('_', '-')} {getattr(args, k)}"
-             for k, d in _JAX_ONLY if getattr(args, k, d) != d]
+             for k, d in _JAX_ONLY if getattr(args, k, d) != d
+             and (production or k != "loop_calc_type")]
     if given:
         log(f"{', '.join(given)}: JAX-only machinery, accepted with no "
             f"effect here")
 
 
-def check_prec(args) -> None:
-    from ..utils import not_ported
+MESH_NEEDS_PRODUCTION = ("--mesh runs the production path only: give "
+                         "--production (the API path, without it, runs on "
+                         "one device)")
 
+
+def api_dtype(args):
+    """The API path's complex dtype for --prec."""
+    import torch
+    return torch.complex128 if args.prec == "double" else torch.complex64
+
+
+def log_production_prec(args) -> None:
+    """The production path reads no --prec (as in the JAX CLIs): say so
+    once when double is asked for."""
     if args.prec == "double":
-        not_ported("--prec double", "item 9")
+        from ..utils import log
+        log("--prec double: the production path computes in f32 (as the "
+            "JAX CLI's does); drop --production for complex128")
 
 
 def build_mesh(args, dims):
@@ -167,8 +190,10 @@ def add_mg_args(p: argparse.ArgumentParser):
     g.add_argument("--mugiq-use-mg", choices=["yes", "no"], default="no")
     g.add_argument("--mugiq-compute-coarse", choices=["yes", "no"],
                    default="yes",
-                   help="accepted for compatibility: the production MG path "
-                        "always eigensolves the coarse operator")
+                   help="with --mugiq-use-mg yes on the API path: eigensolve "
+                        "the coarse operator (no: the fine one); the "
+                        "production MG path always eigensolves the coarse "
+                        "operator")
     g.add_argument("--mg-levels", type=int, default=2)
     g.add_argument("--mg-block-size", type=int, nargs="+",
                    default=[4, 4, 4, 4], metavar="B",

@@ -1,5 +1,9 @@
-"""Eigensolve CLI on the GPU — the production branch of
-mugiq_tpu.cli.eigensolve (the tests/eigensolve.cpp driver analog).
+"""Eigensolve CLI on the GPU (port of mugiq_tpu.cli.eigensolve, the
+tests/eigensolve.cpp program analog).
+
+As the JAX CLI, it runs the production path with --production and the
+API path (api.compute_evecs_mugiq / compute_evecs_mugiq_mg, complex
+fields) without it.  The production path:
 
     python -m mugiq_tpu_torch.cli.eigensolve --dims 32 32 32 64 \
         --gauge random --gauge-seed 1 --kappa 0.12 --eig-nev 8 \
@@ -14,20 +18,29 @@ halo-extended kernels (K7a, K7b):
 
     python -m torch.distributed.run --standalone --nproc-per-node 2 \
         -m mugiq_tpu_torch.cli.eigensolve ... --solve-type direct-pc \
-        --mesh 2 1
+        --production --mesh 2 1
 
 --basis-precision bf16 stores the Krylov basis in bf16, on one device
 and under --mesh (K7a or K7b then take bf16 spinors);
 --eig-block-size B > 1 runs block Lanczos with one batched launch per
-block step (under --mesh, one vector at a time).
+block step (under --mesh, one vector at a time).  The production path
+reads neither --prec (f32; double is logged) nor the MG flags, as in the
+JAX CLI.
+
+The API path runs in complex64 (--prec single) or complex128 (--prec
+double) on one device (--mesh is a usage error there): the full or the
+masked even-even Schur operator (--solve-type), or with --mugiq-use-mg
+yes --mugiq-compute-coarse yes the MG coarse operator:
+
+    python -m mugiq_tpu_torch.cli.eigensolve --dims 8 8 8 16 \
+        --gauge weak:0.5 --gauge-seed 1 --kappa 0.13 --eig-nev 4 \
+        --eig-nkr 24 --eig-tol 1e-10 --prec double --mugiq-use-mg yes \
+        --mg-block-size 2 2 2 2 --mg-nvec 6 --mg-setup-iters 6
 
 The parser defines every flag of the JAX CLI with its choices and
-default, so each of its production invocations parses here.  The port
-has only the production path (--production is accepted); --platform,
+default, so each of its invocations parses here.  --platform,
 --compile-cache and --autotune drive JAX-only machinery and are logged
-with no other effect; the MG group parses, and --mugiq-use-mg yes (the
-JAX API's MG eigensolve) and --prec double raise NotImplementedError
-naming their ROADMAP item.
+with no other effect.
 """
 
 import argparse
@@ -36,14 +49,14 @@ import time
 
 import numpy as np
 
-from .common import (add_dirac_args, add_eig_args, add_lattice_args,
-                     add_mg_args, add_parallel_args, add_production_args,
-                     build_mesh, build_params, check_prec, log_jax_only,
-                     quiet_unless_primary)
-from ..utils import not_ported
+from .common import (MESH_NEEDS_PRODUCTION, add_dirac_args, add_eig_args,
+                     add_lattice_args, add_mg_args, add_parallel_args,
+                     add_production_args, api_dtype, build_mesh,
+                     build_mg_param, build_params, log_jax_only,
+                     log_production_prec, quiet_unless_primary)
 
 
-def parse_args(argv=None):
+def _parser():
     p = argparse.ArgumentParser(
         prog="mugiq-eigensolve-torch",
         description="Eigenpairs of the Dirac operator on a CUDA device "
@@ -54,19 +67,23 @@ def parse_args(argv=None):
     add_mg_args(p)
     add_production_args(p.add_argument_group("production"))
     add_parallel_args(p)
-    return p.parse_args(argv)
+    return p
+
+
+def parse_args(argv=None):
+    return _parser().parse_args(argv)
 
 
 def run(argv=None):
     """Parse, eigensolve, log as the JAX CLI does, save or load the evecs;
-    returns (LanczosResult or None, evals, sigma, resids).  With
+    returns (result, evals, sigma, resids): the production path's
+    LanczosResult or the API path's EigsolveResult.  With
     --eig-vec-infile it loads the checkpoint instead of solving and the
     first item is None."""
-    args = parse_args(argv)
-    if args.mugiq_use_mg == "yes":
-        not_ported("--mugiq-use-mg yes (the MG eigensolve of the JAX API)",
-                   "item 9")
-    check_prec(args)
+    p = _parser()
+    args = p.parse_args(argv)
+    if args.mesh is not None and not args.production:
+        p.error(MESH_NEEDS_PRODUCTION)
 
     from ..io.gauge_io import load_evecs, load_gauge_np, plaquette, save_evecs
     from ..lattice import LatticeGeometry
@@ -92,6 +109,13 @@ def run(argv=None):
         return None, evals, sigma, resids
 
     log_jax_only(args)
+    if not args.production:
+        return _run_api(args, U, gp, ip, ep, geom, device)
+    log_production_prec(args)
+    if args.mugiq_use_mg == "yes":
+        log("--mugiq-use-mg yes: the production eigensolve solves the fine "
+            "operator, as the JAX CLI's does; drop --production for the MG "
+            "coarse eigensolve")
     t0 = time.time()
     res, evals, sigma, resids = compute_evecs_production(
         U, gp, ip, ep, seed=ep.seed, precision=args.link_precision,
@@ -120,6 +144,32 @@ def run(argv=None):
             log(f"Eigenvectors saved to {args.eig_vec_outfile}")
         del evecs
     return res, evals, sigma, resids
+
+
+def _run_api(args, U, gp, ip, ep, geom, device):
+    """The JAX CLI's branch without --production."""
+    from .. import api
+    from ..io.gauge_io import save_evecs
+    from ..utils import log, print_profile
+
+    t0 = time.time()
+    dtype = api_dtype(args)
+    if args.mugiq_use_mg == "yes" and args.mugiq_compute_coarse == "yes":
+        res = api.compute_evecs_mugiq_mg(U, gp, ip, ep, build_mg_param(args),
+                                         dtype=dtype, device=device)
+    else:
+        res = api.compute_evecs_mugiq(
+            U, gp, ip, ep, even_odd=args.solve_type == "direct-pc",
+            dtype=dtype, device=device)
+    res.print_evals()
+    log(f"Time for solution = {time.time() - t0:.3f} s")
+    print_profile()
+    if args.eig_vec_outfile:
+        save_evecs(args.eig_vec_outfile, res.evecs.cpu().numpy(), res.evals,
+                   sigma=res.sigma, resids=res.output.resids,
+                   attrs={"dims": str(geom.dims), "kappa": str(ip.kappa)})
+        log(f"Eigenvectors saved to {args.eig_vec_outfile}")
+    return res, res.evals, res.sigma, res.output.resids
 
 
 def main(argv=None):

@@ -1,5 +1,9 @@
-"""Disconnected-loop CLI on the GPU — the production branch of
-mugiq_tpu.cli.loop.
+"""Disconnected-loop CLI on the GPU (port of mugiq_tpu.cli.loop).
+
+As the JAX CLI, it runs the production path with --production and the
+API path (api.compute_loop, complex fields) without it.
+
+The production path:
 
     python -m mugiq_tpu_torch.cli.loop --dims 32 32 32 64 --gauge random \
         --gauge-seed 1 --kappa 0.12 --eig-nev 8 --eig-nkr 24 --eig-tol 1e-5 \
@@ -20,41 +24,49 @@ mugiq_tpu.cli.loop.
 a card per rank; gloo on the CPU or when ranks share a card):
 
     python -m torch.distributed.run --standalone --nproc-per-node 2 \
-        -m mugiq_tpu_torch.cli.loop --dims 8 8 8 16 ... --mesh 2 1
+        -m mugiq_tpu_torch.cli.loop --dims 8 8 8 16 ... --production \
+        --mesh 2 1
 
 --basis-precision bf16 stores the Krylov basis in bf16, on one device
-and under --mesh (the halo kernels then take bf16 spinors):
+and under --mesh (the halo kernels then take bf16 spinors);
+--eig-block-size B > 1 runs block Lanczos.  The production path reads no
+--prec (f32, as in the JAX CLI; --prec double is logged).
 
-    python -m torch.distributed.run --standalone --nproc-per-node 2 \
-        -m mugiq_tpu_torch.cli.loop --dims 32 32 32 64 ... \
-        --link-precision bf16 --basis-precision bf16 --mesh 2 1
+The API path, in complex64 (--prec single) or complex128 (--prec
+double), on one device (--mesh is a usage error there), with
+--mugiq-use-mg yes --mugiq-compute-coarse yes for the MG-coarse
+eigensolve and prolongated eigenvectors:
 
---eig-block-size B > 1 runs block Lanczos.
+    python -m mugiq_tpu_torch.cli.loop --dims 16 16 16 32 --gauge random \
+        --gauge-seed 3 --kappa 0.12 --eig-nev 8 --eig-nkr 24 \
+        --eig-tol 1e-10 --eig-max-restarts 150 --eig-use-poly-acc \
+        --eig-poly-deg 16 --eig-amin 0.25 --prec double
 
 The parser defines every flag of the JAX CLI with its choices and
-default, so each of its production invocations parses here.  The port
-has only the production path (--production is accepted); --platform,
---compile-cache, --autotune and --loop-calc-type drive JAX-only machinery
-(the production path never reads the calc type) and are logged with no
-other effect.  Values that need unported work raise NotImplementedError
-naming their ROADMAP item: --serve (item 13), --loop-write-pos-space yes
-(item 4), --loop-coarse-ulocal yes (item 12), --prec double (item 9),
---mugiq-use-mg yes with --mesh (item 15).
+default, so each of its invocations parses here.  --platform,
+--compile-cache, --autotune (and on the production path --loop-calc-type)
+drive JAX-only machinery and are logged with no other effect.  Values
+that need unported work raise NotImplementedError naming their ROADMAP
+item: --serve (item 13), --loop-write-pos-space yes (item 4),
+--loop-coarse-ulocal yes (item 12), --mugiq-use-mg yes with --mesh (item
+15).
 """
 
 import argparse
 import sys
 import time
 
-from .common import (add_dirac_args, add_eig_args, add_lattice_args,
-                     add_mg_args, add_parallel_args, add_production_args,
-                     build_mesh, build_mg_param, build_params, check_prec,
-                     log_jax_only, quiet_unless_primary,
+from .common import (MESH_NEEDS_PRODUCTION, add_dirac_args, add_eig_args,
+                     add_lattice_args, add_mg_args, add_parallel_args,
+                     add_production_args, api_dtype, build_mesh,
+                     build_mg_param, build_params, log_jax_only,
+                     log_production_prec, quiet_unless_primary,
                      read_momenta_file)
 from ..utils import not_ported
 
 
-def parse_args(argv=None):
+def _parse(argv):
+    """(parser, parsed args) after the checks of the JAX CLI."""
     p = argparse.ArgumentParser(
         prog="mugiq-loop-torch",
         description="Disconnected quark loops with deflation eigenvectors "
@@ -102,13 +114,20 @@ def parse_args(argv=None):
             and not args.loop_pos_space_filename):
         p.error("--loop-write-pos-space yes requires "
                 "--loop-pos-space-filename")
-    return args
+    return p, args
+
+
+def parse_args(argv=None):
+    return _parse(argv)[1]
 
 
 def run(argv=None):
-    """Parse, run the production loop, log as the JAX CLI does; returns the
-    ProductionResult."""
-    args = parse_args(argv)
+    """Parse, run the production loop (--production) or the API path, log
+    as the JAX CLI does; returns the ProductionResult, or the API path's
+    (LoopResult, EigsolveResult)."""
+    p, args = _parse(argv)
+    if args.mesh is not None and not args.production:
+        p.error(MESH_NEEDS_PRODUCTION)
     if args.serve:
         not_ported("--serve (the resident production server)", "item 13")
     if args.loop_write_pos_space == "yes":
@@ -116,10 +135,9 @@ def run(argv=None):
                    "writer)", "item 4")
     if args.loop_coarse_ulocal == "yes":
         not_ported("--loop-coarse-ulocal", "item 12")
-    check_prec(args)
     from ..io.gauge_io import load_gauge_np, plaquette
     from ..lattice import LatticeGeometry
-    from ..params import FTSign, LoopParam
+    from ..params import CalcType, FTSign, LoopParam
     from ..production import compute_loop_production
     from ..utils import log, print_profile
 
@@ -142,6 +160,8 @@ def run(argv=None):
         do_nonlocal=args.loop_do_nonlocal == "yes",
         disp_entries=[e for e in args.displace_entry_string.split(";") if e],
         fname_mom_h5=args.loop_mom_space_filename,
+        calc_type=(CalcType(args.loop_calc_type) if not args.production
+                   else CalcType.OPT_KERNEL),
     )
     U_loop = None
     if args.loop_gauge_filename:
@@ -151,7 +171,10 @@ def run(argv=None):
     tot, sp, tm = plaquette(U, device)
     log(f"Computed plaquette is {tot:.8f} "
         f"(spatial = {sp:.8f}, temporal = {tm:.8f})")
-    log_jax_only(args)
+    log_jax_only(args, production=args.production)
+    if not args.production:
+        return _run_api(args, U, gp, ip, ep, lp, U_loop, use_mg, mg, device)
+    log_production_prec(args)
     if args.solve_type == "direct-pc":
         log("--solve-type direct-pc applies to the eigensolve CLI; the loop "
             "eigensolves the full operator, as mugiq-loop does")
@@ -171,6 +194,22 @@ def run(argv=None):
     log(f"Time for solution = {time.time() - t0:.3f} s")
     print_profile()
     return res
+
+
+def _run_api(args, U, gp, ip, ep, lp, U_loop, use_mg, mg, device):
+    """The JAX CLI's branch without --production: api.compute_loop."""
+    from .. import api
+    from ..utils import log, print_profile
+
+    t0 = time.time()
+    result, eig_res = api.compute_loop(
+        U, gp, ip, ep, lp, compute_coarse=args.mugiq_compute_coarse == "yes",
+        use_mg=use_mg, mg=mg, U_loop=U_loop, dtype=api_dtype(args),
+        device=device)
+    eig_res.print_evals()
+    log(f"Time for solution = {time.time() - t0:.3f} s")
+    print_profile()
+    return result, eig_res
 
 
 def main(argv=None):

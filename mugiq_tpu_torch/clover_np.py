@@ -37,6 +37,13 @@ def _leaf_np(U, mu, nu):
     return p1 + p2 + p3 + p4
 
 
+def field_strength_plane_np(U: np.ndarray, mu: int, nu: int) -> np.ndarray:
+    """F_mu_nu = (Q - Q^dag) / (8 i), Q the four clover leaves:
+    [T, Z, Y, X, 3, 3], Hermitian in colour."""
+    q = _leaf_np(np.asarray(U), mu, nu)
+    return (q - _dag(q)) / 8.0j
+
+
 def clover_field_np(U: np.ndarray, kappa: float, csw: float) -> np.ndarray:
     """A[T,Z,Y,X,4,3,4,3] complex from a (phased) numpy gauge field."""
     U = np.asarray(U)
@@ -45,8 +52,7 @@ def clover_field_np(U: np.ndarray, kappa: float, csw: float) -> np.ndarray:
     sf = np.zeros(shape + (4, 3, 4, 3), dtype=np.complex128)
     for mu in range(4):
         for nu in range(mu + 1, 4):
-            q = _leaf_np(U, mu, nu)
-            f = (q - _dag(q)) / 8.0j
+            f = field_strength_plane_np(U, mu, nu)
             sf += np.einsum("su,tzyxab->tzyxsaub", sig[mu, nu], f)
     eye = np.einsum("su,ab->saub", np.eye(4), np.eye(3))
     return eye[None, None, None, None] + (csw * kappa * 0.5) * sf

@@ -1,6 +1,11 @@
-"""g5 output map and momentum projection (port of
-mugiq_tpu.planar.phase.map_gamma_g5_planar / phase_matrix_planar and
-production.momentum_project_production)."""
+"""g5 output map and momentum projection: the planar real-pair forms of
+the production path (port of mugiq_tpu.planar.phase.map_gamma_g5_planar /
+phase_matrix_planar and production.momentum_project_production) and the
+complex full-layout forms of the API path (port of mugiq_tpu.ops.phase).
+
+    phase(x, p) = exp(i ft_sign 2 pi sum_d p_d x_d / L_d)
+    dataMom[l, g, t, p] = sum_{z,y,x} dataPos[l, g, t, z, y, x] phase(x, p)
+"""
 
 import numpy as np
 import torch
@@ -18,9 +23,8 @@ def map_gamma_g5_planar(data: torch.Tensor) -> torch.Tensor:
     return data[:, :, idx] * s.reshape(1, 1, 16, 1, 1, 1, 1)
 
 
-def phase_matrix_planar(geom, momenta, ft_sign, device="cuda",
-                        dtype=torch.float32) -> torch.Tensor:
-    """Host-built phases exp(i ft_sign 2 pi p.x / L) as [2, Z, Y, X, P]."""
+def _phases_np(geom, momenta, ft_sign) -> np.ndarray:
+    """exp(i ft_sign 2 pi p.x / L) as complex128 [Z, Y, X, P]."""
     mom = np.asarray(list(momenta), dtype=np.int64).reshape(-1, 3)
     Lx, Ly, Lz, _ = geom.dims
     z, y, x = np.meshgrid(np.arange(Lz), np.arange(Ly), np.arange(Lx),
@@ -28,9 +32,44 @@ def phase_matrix_planar(geom, momenta, ft_sign, device="cuda",
     phi = (mom[:, 0][:, None, None, None] * x[None] / Lx
            + mom[:, 1][:, None, None, None] * y[None] / Ly
            + mom[:, 2][:, None, None, None] * z[None] / Lz)
-    ph = np.moveaxis(np.exp(1j * int(ft_sign) * 2.0 * np.pi * phi), 0, -1)
+    return np.moveaxis(np.exp(1j * int(ft_sign) * 2.0 * np.pi * phi), 0, -1)
+
+
+def phase_matrix_planar(geom, momenta, ft_sign, device="cuda",
+                        dtype=torch.float32) -> torch.Tensor:
+    """Host-built phases exp(i ft_sign 2 pi p.x / L) as [2, Z, Y, X, P]."""
+    ph = _phases_np(geom, momenta, ft_sign)
     return torch.as_tensor(np.stack([ph.real, ph.imag]), dtype=dtype,
                            device=device)
+
+
+def phase_matrix(geom, momenta, ft_sign, dtype=torch.complex64,
+                 device="cuda") -> torch.Tensor:
+    """Complex phases [Z, Y, X, P] (momenta: (px, py, pz) triples, the
+    reference's momMatrix rows; ft_sign -1 or +1)."""
+    return torch.as_tensor(_phases_np(geom, momenta, ft_sign), dtype=dtype,
+                           device=device)
+
+
+def map_gamma_g5(data_pos: torch.Tensor) -> torch.Tensor:
+    """The G -> g5 G remap and sign on the gamma axis (axis 1) of
+    dataPos [l, 16, T, Z, Y, X] (convertIdxOrder_mapGamma_kernel,
+    lib/mugiq_util_kernels.cu:88-97)."""
+    inv = np.argsort(gamma_map_index())
+    s = torch.as_tensor(gamma_map_sign()[inv], dtype=data_pos.real.dtype,
+                        device=data_pos.device)
+    idx = torch.as_tensor(inv, device=data_pos.device)
+    return data_pos[:, idx] * s.reshape(1, 16, 1, 1, 1, 1)
+
+
+def momentum_project(data_pos_mapped: torch.Tensor,
+                     phases: torch.Tensor) -> torch.Tensor:
+    """dataMom[l, g, t, p] from dataPos [l, g, t, z, y, x] and phases
+    [Z, Y, X, P]: one complex GEMM over the spatial volume."""
+    l, g, T = data_pos_mapped.shape[:3]
+    P = phases.shape[-1]
+    return (data_pos_mapped.reshape(l * g * T, -1)
+            @ phases.reshape(-1, P)).reshape(l, g, T, P)
 
 
 def momentum_project_production(data: torch.Tensor,

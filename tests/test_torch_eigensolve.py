@@ -106,13 +106,44 @@ def test_evec_checkpoint_round_trip(pc_run, tmp_path):
     np.testing.assert_array_equal(rs2, np.asarray(resids))
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--mugiq-use-mg", "yes"], "item 9"),
-    (["--mesh", "1", "1", "--mugiq-use-mg", "yes"], "item 9"),
-    (["--prec", "double"], "item 9")])
-def test_options_outside_slice_raise(flags, item):
-    """--basis-precision bf16 and --eig-block-size 2 run on one device
-    (tests/test_torch_bf16_basis.py, test_torch_block_lanczos.py) and
-    under --mesh (tests/test_torch_mesh.py)."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        cli.run(ARGS + PC + flags)
+# the API path (no --production): complex fields, one device
+API_ARGS = [a for a in ARGS if a != "--production"]
+
+
+@pytest.mark.parametrize("flags, rtol", [
+    (["--eig-amin", "0.09"], 1e-5),
+    (["--eig-amin", "0.09", "--prec", "double", "--eig-tol", "1e-10"],
+     1e-9),
+    (["--mugiq-use-mg", "yes", "--mg-block-size", "2", "2", "2", "2",
+      "--mg-nvec", "4", "--mg-setup-iters", "6", "--prec", "double",
+      "--eig-tol", "1e-10", "--eig-amin", "0.7"], None)],
+    ids=["fine", "fp64", "mg"])
+def test_api_path_runs(flags, rtol, tmp_path):
+    """Without --production the CLI runs the API path, as the JAX CLI
+    does: complex64 or (--prec double) complex128 against the JAX fp64
+    validation run, and the MG-coarse eigensolve; the evec file has the
+    JAX API path's attributes (no layout)."""
+    h5 = str(tmp_path / "evecs.h5")
+    res, evals, sigma, resids = cli.run(API_ARGS + flags
+                                        + ["--eig-vec-outfile", h5])
+    double = "double" in flags
+    assert res.evecs.dtype == (torch.complex128 if double
+                               else torch.complex64)
+    assert res.output.converged
+    assert max(resids) < (1e-8 if double else 1e-5)
+    if rtol is None:
+        assert res.mg_env is not None
+        assert res.evecs.shape == (4, 2, 2, 2, 2, 2, 4)
+    else:
+        np.testing.assert_allclose(np.sort(evals.real),
+                                   _jax_evals(False, False)[0], rtol=rtol)
+    with h5py.File(h5, "r") as f:
+        assert dict(f.attrs) == {"dims": str(DIMS), "kappa": str(0.13)}
+        np.testing.assert_array_equal(f["evecs"][:], res.evecs.numpy())
+
+
+def test_mesh_without_production_raises():
+    """The API path runs on one device; the JAX API branch would ignore
+    --mesh."""
+    with pytest.raises(SystemExit):
+        cli.run(API_ARGS + PC + ["--mesh", "1", "1"])

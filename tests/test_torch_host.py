@@ -42,7 +42,14 @@ _IMPORT_ALL = (
     "mugiq_tpu_torch.io.lime_io, mugiq_tpu_torch.io.hdf5io, "
     "mugiq_tpu_torch.parallel.mesh, mugiq_tpu_torch.parallel.distributed, "
     "mugiq_tpu_torch.parallel.halo, mugiq_tpu_torch.parallel.shard_dslash, "
-    "mugiq_tpu_torch.parallel.shard_op, chip_smoke\n")
+    "mugiq_tpu_torch.parallel.shard_op, mugiq_tpu_torch.api, "
+    "mugiq_tpu_torch.fields, mugiq_tpu_torch.ops.dslash, "
+    "mugiq_tpu_torch.ops.contract, mugiq_tpu_torch.clover, "
+    "mugiq_tpu_torch.dirac, mugiq_tpu_torch.schur, "
+    "mugiq_tpu_torch.solvers, mugiq_tpu_torch.displace, "
+    "mugiq_tpu_torch.eig.lanczos, mugiq_tpu_torch.eig.arnoldi, "
+    "mugiq_tpu_torch.eig.eigsolve, mugiq_tpu_torch.mg.setup, "
+    "mugiq_tpu_torch.mg.coarse, mugiq_tpu_torch.mg.mg, chip_smoke\n")
 
 
 def test_import_leaves_jax_out():
