@@ -26,19 +26,19 @@ Phases (each prints its own lines and raises on failure):
   identity  K6 tied to K1 at 32^3x64: M_pc psi_e equals the even half of
             K1(psi_e, psi_o) with psi_o = A_oo^-1 kappa D_oe psi_e, whose
             odd half vanishes (Wilson and clover, M and M^dag);
-  slice     the loop slice at 8^3x16 through the kernels on the card
-            against the same slice through the twins on the CPU;
-  pc-slice  the even-odd preconditioned eigensolve at 8^3x16, likewise;
+  slice     the loop slice at 8x4x4x8 (TWIN_DIMS) through the kernels on
+            the card against the same slice through the twins on the CPU;
+  pc-slice  the even-odd preconditioned eigensolve at 8x4x4x8, likewise;
   bf16-restart  the JAX package's TPU restart bench (bench.py
             _bench_eig32_restart: 32^3x64, random-normal links, MdagM, nKr
             24, nEv 8) through the port: warm s/restart with bf16 links and
             a bf16 basis, and with f32 links and an f32 basis;
-  bf16-slice  the bf16-basis eigensolve at 8^3x16 (full and pc operator)
+  bf16-slice  the bf16-basis eigensolve at 8x4x4x8 (full and pc operator)
             through the kernels on the card against the twins on the CPU,
             and against the f32 basis;
-  block-slice  block Lanczos (b = 4) of the pc eigensolve at 8^3x16
+  block-slice  block Lanczos (b = 4) of the pc eigensolve at 8x4x4x8
             through K6's batched launch against the twins and b = 1;
-  arnoldi-slice  the Krylov-Schur Arnoldi of M and M^dag at 8^3x16
+  arnoldi-slice  the Krylov-Schur Arnoldi of M and M^dag at 8x4x4x8
             (compute_evecs_production; no CLI reaches it) through the
             kernels against the twins;
   flagship  the flagship 32^3x64 loop through the CLI
@@ -58,6 +58,25 @@ Phases (each prints its own lines and raises on failure):
   mg-flagship  the MG-deflated 32^3x64 loop through the CLI (the settings
             of scripts/time_mg32.py plus one displacement), held to the
             coarse eigenvalues the JAX package recorded;
+  coarse-loop  the coarse-space ultra-local loop at 32^3x64 through the
+            loop CLI's API path (no --production, --prec single, the MG
+            flagship's lattice, gauge, kappa, eigensolver and hierarchy,
+            --mugiq-compute-coarse yes --loop-coarse-ulocal yes): coarse
+            residual <= 1e-5, the loop [P, 16, T] finite and equal to its
+            fine factorized form from the prolongated eigenvectors (on the
+            card, complex128) within 1e-4 of max |L|, every field on the
+            card; the phase's and the restriction's seconds;
+  stoch-flagship  the deflated stochastic trace at 32^3x64 (the recipe of
+            the JAX package's scripts/stoch32.py on the flagship gauge:
+            an nEv 8 MdagM eigensolve, 4 Z4 noises, CG tol 1e-5,
+            deflated and plain; stochastic_production, CG on M^dag M
+            through K1, contractions through K2): each noise's CG
+            iterations and residual (<= 1e-5), the deflation build and
+            probe seconds, K1's and K2's launches (> 0), the variance
+            over the noises of the volume-summed Gamma = 1 and gamma_5
+            traces, deflated against plain; then the same trace at
+            8^3x16 through the kernels against the twins on the CPU (the
+            card's eigenvectors), within 1e-5 of max |data|;
   hop       K4 (the bare hop D psi) against its twin at 32^3x64 in all 16
             variants (spinor, links and output f32 or bf16, D and D^dag;
             bf16 spinors two sites a thread), and its one-site bf16
@@ -84,8 +103,11 @@ Phases (each prints its own lines and raises on failure):
             instance (a misaligned base) likewise, timed beside the pairs;
   mesh-slice  the 8^3x16 loop over --mesh 2 2 2 (8 ranks on the card,
             gloo) and the pc eigensolve (f32 and bf16 basis), its block
-            Lanczos (b = 4) and the Arnoldi of M over --mesh 2 1, held to
-            the same runs on one device (a bf16 basis: evals 1e-3); the
+            Lanczos (b = 4), the Arnoldi of M and the loop with keep_pos
+            over --mesh 2 1, held to the same runs on one device (a bf16
+            basis: evals 1e-3; keep_pos: the global data_pos 1e-3 of
+            max); the pc run's evecs through the per-rank npz files
+            (save_evecs_sharded / load_evecs_sharded) bit for bit; the
             sharded bare hop (ShardedWilsonKernel _hop / _hop_dag,
             K4-halo) on f32 and bf16 fields over 2 1 and 2 2 2, each rank
             held to K4's twin and to K4 on the global field;
@@ -105,7 +127,8 @@ Phases (each prints its own lines and raises on failure):
             after the card's, every host core): the loop in
             complex128 (evals 1e-10, data_mom 1e-8 normwise) and complex64
             (1e-5, 1e-4), and the MG-coarse eigensolve in complex128
-            (coarse evals 1e-10);
+            (coarse evals 1e-10) with the coarse-space ultra-local loop
+            of its eigenpairs (mg.coarse_loop, 1e-10 of max |L|);
   api-fp64  the error budget of scripts/error_budget16.py on the card:
             the fp64 API loop at 16^3x32 converged (max residual <= 1e-8),
             the f32 production loop (< 1e-3; evals within 1e-5 of fp64),
@@ -127,7 +150,11 @@ fields of their kernel's entry; the halo kernels' bf16-spinor forms
 (each wrapper counts them apart too, as bf16_launches) from the bf16
 `--mesh 1 1` flagship (K7a, all-bf16), the bf16-basis pc run of
 mesh-slice (K7b, f32 links) and the sharded hop's bf16 field
-(K4-halo).  The last two lines are {"kernels": [...]} and {"ok": true,
+(K4-halo); K1 and K2 also report their launches in the stochastic trace
+of stoch-flagship (stoch_launches).  The GPU machine has no h5py: the
+position-space and momentum-space files are written only where h5py is
+installed (the CPU tests hold the position-space files to the JAX
+package's).  The last two lines are {"kernels": [...]} and {"ok": true,
 "device": {...}}.  Without CUDA, or outside a checkout of the
 repository, it exits nonzero and prints no result.
 """
@@ -169,6 +196,18 @@ PC_FLAGSHIP_ARGS = [
     "--production"]
 PC_SLICE_AMIN = 0.2
 
+# The lattice of the slices whose CPU twins run in this script (slice,
+# pc-slice, bf16-slice, block-slice, arnoldi-slice): 8x4x4x8, a quarter of
+# 8^3x16's sites, so that the twins' CPU time is about a fifth of it.
+# weak:0.5, seed 1, kappa 0.13: M^dag M starts 0.05132 0.05152 0.05211
+# 0.05228 | 0.05409, the pc M^dag M 0.16735 0.16789 0.16985 0.17036 |
+# 0.17538 (the API path in complex128 converged to 1e-9), so n_ev = 4
+# ends at a 3.5% and a 2.9% gap; the Chebyshev windows start 19% and 17%
+# above the fourth eigenvalue.
+TWIN_DIMS = (8, 4, 4, 8)
+TWIN_AMIN = 0.062
+TWIN_PC_AMIN = 0.2
+
 # The block-Lanczos flagship: b = 4 at nKr 24 keeps 16 vectors and adds two
 # block steps a restart, so it needs some 4-5x the restarts of b = 1, in the
 # JAX package as in the port (on the CPU, 4x4x2x4 MdagM: 141 and 116
@@ -194,6 +233,52 @@ MG_COARSE_EVALS4 = (0.35264265537261963, 0.3527253270149231,
                     0.35273972153663635, 0.35287201404571533)
 MG_EVALS_RTOL = 1e-3
 MG_MAX_RESIDUAL = 1e-5
+
+
+def drop_flags(args, flags):
+    """args without the given flags, each with its number of values."""
+    out, i = [], 0
+    while i < len(args):
+        if args[i] in flags:
+            i += 1 + flags[args[i]]
+        else:
+            out.append(args[i])
+            i += 1
+    return out
+
+
+# The coarse-space ultra-local loop (coarse-loop): the MG flagship's
+# lattice, gauge, kappa, eigensolver and hierarchy on the API path (no
+# --production; complex64), without bf16 links and the displacement, the
+# coarse eigenvectors' loop assembled by mg.coarse_loop, at
+# MG_FLAGSHIP_MOMENTA; held to its fine factorized form within
+# COARSE_LOOP_TOL of max |L|
+COARSE_LOOP_ARGS = drop_flags(MG_FLAGSHIP_ARGS, {
+    "--production": 0, "--link-precision": 1, "--loop-do-nonlocal": 1,
+    "--displace-entry-string": 1}) + [
+    "--prec", "single", "--mugiq-compute-coarse", "yes",
+    "--loop-coarse-ulocal", "yes"]
+COARSE_LOOP_TOL = 1e-4
+
+# The deflated stochastic trace (stoch-flagship): the recipe of the JAX
+# package's scripts/stoch32.py, uncut, on the flagship's gauge (the JAX
+# run's jax.random gauge cannot be reproduced): the deflation space of an
+# MdagM eigensolve (nEv 8, nKr 24, tol 1e-5, 20 restarts, Chebyshev deg
+# 16 above 0.25, start vector seed 11), kappa 0.12, 4 Z4 noises (seeds
+# 99 + i), CG tol 1e-5, deflated and plain
+STOCH_EIG = dict(n_ev=8, n_kr=24, tol=1e-5, max_restarts=20,
+                 check_interval=2, use_poly_acc=True, poly_deg=16,
+                 a_min=0.25)
+STOCH_EIG_SEED = 11
+STOCH_KAPPA = 0.12
+STOCH_NOISES = 4
+STOCH_SEED = 99
+STOCH_TOL = 1e-5
+# the same recipe at 8^3x16 (random gauge, seed 1) through the kernels
+# against the twins, within STOCH_TWIN_TOL of max |data|
+STOCH_TWIN_DIMS = (8, 8, 8, 16)
+STOCH_TWIN_NOISES = 2
+STOCH_TWIN_TOL = 1e-5
 
 # kernel vs twin: max |kernel - twin| / max |twin|.  Both run in f32 with
 # the same inputs and differ only in summation order (K1, K6: half-spinor
@@ -629,21 +714,16 @@ def phase_kernels(dev, stats):
 
 
 def phase_slice(dev):
-    """The slice at 8^3x16 through the kernels (card) vs the twins (CPU)."""
+    """The slice at 8x4x4x8 through the kernels (card) vs the twins
+    (CPU)."""
     import numpy as np
-    from mugiq_tpu_torch.io.gauge_io import load_gauge_np
-    from mugiq_tpu_torch.lattice import LatticeGeometry
-    from mugiq_tpu_torch.params import (EigParam, GaugeParam, InvertParam,
-                                        LoopParam)
+    from mugiq_tpu_torch.params import EigParam, LoopParam
     from mugiq_tpu_torch.production import compute_loop_production
 
-    geom = LatticeGeometry((8, 8, 8, 16))
-    U = load_gauge_np("weak:0.5", geom, seed=1)
-    gp = GaugeParam(dims=geom.dims)
-    ip = InvertParam(kappa=0.13)
-    # n_ev = 4 ends at a gap of the spectrum (0.04987 | 0.05020)
+    U, gp, ip = slice_setup()
+    # n_ev = 4 ends at a gap of the spectrum (TWIN_DIMS)
     ep = EigParam(n_ev=4, n_kr=24, tol=1e-6, max_restarts=100,
-                  use_poly_acc=True, poly_deg=12, a_min=0.15)
+                  use_poly_acc=True, poly_deg=12, a_min=TWIN_AMIN)
     lp = LoopParam(momenta=[(0, 0, 0), (1, 0, 0), (0, 1, 1)],
                    do_nonlocal=True, disp_entries=["+z:1,2", "-t:1"])
     out = {}
@@ -651,7 +731,7 @@ def phase_slice(dev):
         t0 = time.perf_counter()
         out[name] = compute_loop_production(U, gp, ip, ep, lp, device=d)
         r = out[name]
-        say(f"slice 8^3x16 via {name} on {d}: {time.perf_counter() - t0:.2f}"
+        say(f"slice 8x4x4x8 via {name} on {d}: {time.perf_counter() - t0:.2f}"
             f" s, converged={r.converged} restarts={r.n_restarts} "
             f"max resid {max(r.resids):.2e}")
         if not r.converged:
@@ -946,27 +1026,23 @@ def phase_identity(dev):
 
 
 def phase_pc_slice(dev):
-    """The pc eigensolve at 8^3x16 through K6 (card) vs its twin (CPU)."""
+    """The pc eigensolve at 8x4x4x8 through K6 (card) vs its twin
+    (CPU)."""
     import numpy as np
-    from mugiq_tpu_torch.io.gauge_io import load_gauge_np
-    from mugiq_tpu_torch.lattice import LatticeGeometry
-    from mugiq_tpu_torch.params import EigParam, GaugeParam, InvertParam
+    from mugiq_tpu_torch.params import EigParam
     from mugiq_tpu_torch.production import compute_evecs_production
 
-    geom = LatticeGeometry((8, 8, 8, 16))
-    U = load_gauge_np("weak:0.5", geom, seed=1)
-    gp = GaugeParam(dims=geom.dims)
-    ip = InvertParam(kappa=0.13)
-    # the pc spectrum starts 0.16193 0.16233 0.16259 0.16273 | 0.16374
+    U, gp, ip = slice_setup()
+    # n_ev = 4 ends at a gap of the pc spectrum (TWIN_DIMS)
     ep = EigParam(n_ev=4, n_kr=24, tol=1e-6, max_restarts=100,
-                  use_poly_acc=True, poly_deg=12, a_min=PC_SLICE_AMIN)
+                  use_poly_acc=True, poly_deg=12, a_min=TWIN_PC_AMIN)
     out = {}
     for name, d in (("kernels", dev), ("twins", "cpu")):
         t0 = time.perf_counter()
         res, evals, _, resids = compute_evecs_production(
             U, gp, ip, ep, even_odd=True, device=d)
         out[name] = evals
-        say(f"pc slice 8^3x16 via {name} on {d}: "
+        say(f"pc slice 8x4x4x8 via {name} on {d}: "
             f"{time.perf_counter() - t0:.2f} s, converged={res.converged} "
             f"restarts={res.n_restarts} max resid {max(resids):.2e}")
         if not res.converged:
@@ -1416,13 +1492,13 @@ def match_rel(a, b):
 
 
 def slice_setup():
-    """The 8^3x16 slice's gauge and parameters (weak:0.5, seed 1, kappa
-    0.13), as phase_slice and phase_pc_slice build them."""
+    """The twin slices' gauge and parameters (TWIN_DIMS, weak:0.5, seed 1,
+    kappa 0.13)."""
     from mugiq_tpu_torch.io.gauge_io import load_gauge_np
     from mugiq_tpu_torch.lattice import LatticeGeometry
     from mugiq_tpu_torch.params import GaugeParam, InvertParam
 
-    geom = LatticeGeometry((8, 8, 8, 16))
+    geom = LatticeGeometry(TWIN_DIMS)
     return (load_gauge_np("weak:0.5", geom, seed=1),
             GaugeParam(dims=geom.dims), InvertParam(kappa=0.13))
 
@@ -1491,7 +1567,7 @@ def phase_bf16_restart(dev, stats):
 
 
 def phase_bf16_slice(dev, counters, launches):
-    """The bf16-basis eigensolve at 8^3x16 through the kernels (card), full
+    """The bf16-basis eigensolve at 8x4x4x8 through the kernels (card), full
     operator (K1, also through the twins on the CPU) and packed pc operator
     (K6): eigenvalues within 1e-2 relative of the twins' and within 3e-2
     of the f32 solve on the card, residuals < 0.1; fills `launches` with
@@ -1499,8 +1575,8 @@ def phase_bf16_slice(dev, counters, launches):
     import numpy as np
     from mugiq_tpu_torch.params import EigParam
 
-    for eo, amin, kern in ((False, 0.15, "wilson_m"),
-                           (True, PC_SLICE_AMIN, "parity_hop")):
+    for eo, amin, kern in ((False, TWIN_AMIN, "wilson_m"),
+                           (True, TWIN_PC_AMIN, "parity_hop")):
         tag = "pc" if eo else "full"
         # the twins' CPU time: the full operator only (K6's bf16 form is
         # held to its twin in the bf16 phase)
@@ -1538,7 +1614,7 @@ def phase_bf16_slice(dev, counters, launches):
 
 
 def phase_block_slice(dev, counters):
-    """Block Lanczos (b = 4) of the pc eigensolve at 8^3x16 through K6's
+    """Block Lanczos (b = 4) of the pc eigensolve at 8x4x4x8 through K6's
     batched launch (card) against the twins (CPU) and the b = 1 solve:
     eigenvalues 1e-5; returns K6's launches."""
     import numpy as np
@@ -1551,7 +1627,7 @@ def phase_block_slice(dev, counters):
             f"block slice pc {name}", d, counters, even_odd=True,
             eig=EigParam(n_ev=4, n_kr=24, tol=1e-6, max_restarts=100,
                          use_poly_acc=True, poly_deg=12,
-                         a_min=PC_SLICE_AMIN, block_size=b))
+                         a_min=TWIN_PC_AMIN, block_size=b))
         if not res.converged:
             raise AssertionError(f"block slice {name} did not converge")
         if name == "b=4 kernels":
@@ -1593,7 +1669,7 @@ def arnoldi_run(argv):
 
 
 def phase_arnoldi_slice(dev, counters):
-    """compute_evecs_production with EigOperator.M and Mdag at 8^3x16 (the
+    """compute_evecs_production with EigOperator.M and Mdag at 8x4x4x8 (the
     Krylov-Schur Arnoldi, smallest modulus) through the kernels (card)
     against the twins (CPU): eigenvalues 1e-5 relative; M^dag's the
     conjugates of M's."""
@@ -1627,7 +1703,8 @@ def phase_arnoldi_slice(dev, counters):
 
 def api_run(cli_name, argv):
     """One API-path CLI run (cli_name loop or eig) -> (seconds, restarts,
-    converged, max residual, evals, data_mom or None, evecs)."""
+    converged, max residual, evals, data_mom or None, evecs,
+    EigsolveResult)."""
     from mugiq_tpu_torch.cli import eigensolve as cli_eig
     from mugiq_tpu_torch.cli import loop as cli_loop
 
@@ -1640,7 +1717,7 @@ def api_run(cli_name, argv):
         data_mom = None
     out = eig.output
     return (time.perf_counter() - t0, out.n_restarts, bool(out.converged),
-            float(out.resids.max()), out.evals, data_mom, out.evecs)
+            float(out.resids.max()), out.evals, data_mom, out.evecs, eig)
 
 
 def api_jobs():
@@ -1660,7 +1737,9 @@ def phase_api_slice():
     """The API path (the CLIs without --production) at 8^3x16 on the card
     against the same runs on the CPU, one after the other in this
     process: the loop in complex128 and complex64, the MG-coarse
-    eigensolve in complex128."""
+    eigensolve in complex128 and the coarse-space ultra-local loop of its
+    eigenpairs (mg.coarse_loop.coarse_loop_ulocal, weights 1/Re(lambda),
+    FLAGSHIP_MOMENTA; card vs CPU within 1e-10 of max |L|)."""
     import numpy as np
     import torch
 
@@ -1696,6 +1775,24 @@ def phase_api_slice():
             f"{ev_tol:g}), data_mom normwise {dm:.2e} (tol {dm_tol:g})")
         if not (ev_rel <= ev_tol and dm <= dm_tol):
             raise AssertionError(f"api {name}: card disagrees with CPU")
+    from mugiq_tpu_torch.mg.coarse_loop import coarse_loop_ulocal
+    momenta = [tuple(int(v) for v in ln.split())
+               for ln in FLAGSHIP_MOMENTA.splitlines()]
+    loops = {}
+    for d, r in (("cuda", card["MG eigensolve double"]),
+                 ("cpu", cpu["MG eigensolve double"])):
+        eig = r[7]
+        t0 = time.perf_counter()
+        loops[d] = coarse_loop_ulocal(eig.mg_env, eig.evecs,
+                                      1.0 / np.asarray(eig.evals).real,
+                                      eig.geom, momenta)
+        say(f"api coarse loop on {d}: {time.perf_counter() - t0:.3f} s, "
+            f"shape {loops[d].shape}, |L|_max {np.abs(loops[d]).max():.6e}")
+    err = float(np.abs(loops["cuda"] - loops["cpu"]).max()
+                / np.abs(loops["cpu"]).max())
+    say(f"api coarse loop, card vs CPU: rel {err:.2e} (tol 1e-10)")
+    if not (err <= 1e-10 and np.isfinite(loops["cuda"]).all()):
+        raise AssertionError("api coarse loop: card disagrees with CPU")
 
 
 def api_operator_ms(U, gp, ip, dev):
@@ -1878,6 +1975,222 @@ def phase_mg_flagship(counters):
             raise AssertionError(f"kernel {name} was not launched by the mg "
                                  f"flagship run")
     return launches
+
+
+def fine_loop_ulocal(env, evecs, weights, geom, momenta, ft_sign=-1):
+    """The coarse-space ultra-local loop's fine factorized form
+    (tests/test_coarse_loop.py) from the prolongated eigenvectors psi_m =
+    P u_m, on their device in complex128:
+    L_n(p, t) = sum_m w_m sum_ij gcoeff(n)_ij <psi_m, unit_i>
+    <phase_p delta_t unit_j, psi_m>; numpy [P, 16, T]."""
+    import numpy as np
+    import torch
+    from mugiq_tpu_torch.mg.coarse_loop import _gcoeff_np, _phase_np
+
+    c128 = torch.complex128
+    dev = evecs.device
+    psi = env.prolongate(evecs).to(c128)          # [m, T, Z, Y, X, 4, 3]
+    m, T = psi.shape[:2]
+    psi = psi.reshape(m, T, -1, 12)
+    A = psi.conj().sum(dim=(1, 2))                # [m, 12]
+    ph = torch.as_tensor(np.stack(
+        [np.array(_phase_np(geom, p, ft_sign)[0]).reshape(-1)
+         for p in momenta], -1), dtype=c128, device=dev)     # [V, P]
+    B = torch.einsum("mtvj,vp->mptj", psi, ph.conj())
+    del psi
+    gco = torch.as_tensor(_gcoeff_np(), dtype=c128, device=dev)
+    w = torch.as_tensor(np.asarray(weights, dtype=np.float64), dtype=c128,
+                        device=dev)
+    return torch.einsum("nij,mi,mptj,m->pnt", gco, A, B, w).cpu().numpy()
+
+
+def phase_coarse_loop(counters):
+    """The coarse-space ultra-local loop at 32^3x64 through the loop CLI's
+    API path (COARSE_LOOP_ARGS): the MG-coarse eigensolve in complex64 to
+    max coarse residual <= MG_MAX_RESIDUAL (its tol 1e-6 sits at the
+    complex64 floor: it may stop at its 120 restarts short of it), the
+    coarse loop
+    finite, of shape [P, 16, T], equal to its fine factorized form from
+    the prolongated eigenvectors on the card within COARSE_LOOP_TOL of max
+    |L|, and every field on the card."""
+    import numpy as np
+    import torch
+    from mugiq_tpu_torch.cli import loop as cli_loop
+
+    mom = os.path.join(WORK["dir"], "coarse_loop_moms.txt")
+    with open(mom, "w") as f:
+        f.write(MG_FLAGSHIP_MOMENTA)
+    argv = with_flagship_gauge(COARSE_LOOP_ARGS) + ["--momenta-filename",
+                                                     mom]
+    say("coarse loop CLI: python -m mugiq_tpu_torch.cli.loop "
+        + " ".join(argv))
+    torch.cuda.reset_peak_memory_stats()
+    (result, eig, coarse), wall, phases, _ = run_main_path(
+        "coarse loop", cli_loop.run, argv, counters)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out = eig.output
+    for i, (lam, r) in enumerate(zip(out.evals, out.resids)):
+        say(f"coarse loop: coarse eval[{i}] {lam.real:+.10e} resid {r:.3e}")
+    devices = {t.device.type for t in (eig.evecs, result.data_pos,
+                                       eig.mg_env.transfers[0].V)}
+    momenta = [tuple(int(v) for v in ln.split())
+               for ln in MG_FLAGSHIP_MOMENTA.splitlines()]
+    t0 = time.perf_counter()
+    want = fine_loop_ulocal(eig.mg_env, eig.evecs,
+                            1.0 / np.asarray(out.evals).real, eig.geom,
+                            momenta)
+    t_fine = time.perf_counter() - t0
+    err = float(np.abs(coarse - want).max() / np.abs(want).max())
+    say(f"coarse loop: wall {wall:.2f} s, restriction and assembly "
+        f"(coarse-loop) {phases.get('coarse-loop', float('nan')):.3f} s, "
+        f"fine factorized form {t_fine:.3f} s; converged={out.converged} "
+        f"restarts={out.n_restarts} max coarse resid {out.resids.max():.3e}"
+        f" (limit {MG_MAX_RESIDUAL:.0e}); shape {coarse.shape}, |L|_max "
+        f"{np.abs(coarse).max():.6e}, vs the fine form rel {err:.2e} (tol "
+        f"{COARSE_LOOP_TOL:.0e}); fields on {sorted(devices)}; peak device "
+        f"memory {peak:.1f} GB")
+    if not out.resids.max() <= MG_MAX_RESIDUAL:
+        raise AssertionError("coarse loop: the coarse eigensolve's "
+                             "residual is over its limit")
+    if coarse.shape != (len(momenta), 16, 64) or not np.isfinite(
+            coarse).all():
+        raise AssertionError(f"coarse loop: shape {coarse.shape} or not "
+                             f"finite")
+    if not err <= COARSE_LOOP_TOL:
+        raise AssertionError("coarse loop disagrees with its fine form")
+    if devices != {"cuda"}:
+        raise AssertionError(f"coarse loop: fields left the card: "
+                             f"{devices}")
+
+
+def stoch_sums(data, names=("1", "g5")):
+    """The volume sums of the complex traces [2, 16, T, Z, Y, X] for the
+    named gammas (float64 on the device), as complex numbers."""
+    from mugiq_tpu_torch.gamma import GAMMA_NAMES
+    out = []
+    for g in names:
+        k = GAMMA_NAMES.index(g)
+        re = float(data[0, k].double().sum())
+        im = float(data[1, k].double().sum())
+        out.append(complex(re, im))
+    return out
+
+
+def phase_stoch_flagship(dev, counters, launches):
+    """The deflated stochastic trace at 32^3x64 (STOCH_*: the recipe of
+    the JAX package's scripts/stoch32.py on the flagship gauge): the
+    MdagM eigensolve, the deflation space (M v_n through K1), then the 4
+    noises one call each (seeds 99 + i), deflated and plain, each CG on
+    M^dag M through K1 and each contraction through K2; every CG
+    residual <= STOCH_TOL, the estimates finite, K1 and K2 launched
+    (counters zeroed before the deflation build, read after the plain
+    probes; fills `launches`); the variance over the noises of the
+    volume-summed Gamma = 1 and gamma_5 traces, deflated against plain.
+    Then at 8^3x16 the same trace through the kernels against the twins
+    on the CPU, the card's eigenvectors handed to the CPU."""
+    import numpy as np
+    import torch
+    from mugiq_tpu_torch.io.gauge_io import load_gauge_np
+    from mugiq_tpu_torch.lattice import LatticeGeometry
+    from mugiq_tpu_torch.params import EigParam, GaugeParam, InvertParam
+    from mugiq_tpu_torch.production import (build_kernel_dirac,
+                                            compute_evecs_production)
+    from mugiq_tpu_torch.stochastic_production import (
+        DeflationSpaceKernel, stochastic_loop_trace_production)
+
+    argv = with_flagship_gauge(FLAGSHIP_ARGS)
+    dims = tuple(int(v) for v in argv[argv.index("--dims") + 1:][:4])
+    geom = LatticeGeometry(dims)
+    t0 = time.perf_counter()
+    U = load_gauge_np(argv[argv.index("--gauge") + 1], geom)
+    gp, ip = GaugeParam(dims=dims), InvertParam(kappa=STOCH_KAPPA)
+    say(f"stoch flagship: gauge read in {time.perf_counter() - t0:.1f} s")
+
+    def synced():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    t0 = synced()
+    res, evals, _, rs = compute_evecs_production(
+        U, gp, ip, EigParam(**STOCH_EIG), seed=STOCH_EIG_SEED, device=dev)
+    t_eig = synced() - t0
+    op = build_kernel_dirac(U, gp, ip, device=dev)
+    del U
+    say(f"stoch flagship: eigensolve {t_eig:.2f} s, restarts "
+        f"{res.n_restarts}, converged={res.converged}, max resid "
+        f"{max(rs):.3e}, evals {np.round(evals, 6).tolist()}")
+    zero_counts(counters)
+    t0 = synced()
+    defl = DeflationSpaceKernel.build(op, res.evecs, evals)
+    t_defl = synced() - t0
+    seconds, solves, sums, mean = {}, {}, {}, {}
+    for name, ds in (("deflated", defl), ("plain", None)):
+        solves[name], sums[name], acc = [], [], None
+        t0 = synced()
+        for i in range(STOCH_NOISES):
+            d = stochastic_loop_trace_production(
+                op, geom, 1, deflation=ds, solver_tol=STOCH_TOL,
+                seed=STOCH_SEED + i, solves=solves[name])
+            sums[name].append(stoch_sums(d))
+            acc = d if acc is None else acc.add_(d)
+            del d
+        seconds[name] = synced() - t0
+        mean[name] = acc / STOCH_NOISES
+        del acc
+    lk = read_counts(counters)
+    launches.update({k: lk[k] for k in ("wilson_m", "loop_contract")})
+    finite = all(bool(torch.isfinite(m).all()) for m in mean.values())
+    say(f"stoch flagship: deflation build {t_defl:.3f} s, deflated probes "
+        f"{seconds['deflated']:.3f} s, plain probes {seconds['plain']:.3f} s"
+        f" ({STOCH_NOISES} noises each, one call a noise); launches K1 "
+        f"{lk['wilson_m']}, K2 {lk['loop_contract']}; estimates finite: "
+        f"{finite} ({card_line()})")
+    for name in solves:
+        say(f"stoch flagship {name}: CG iterations "
+            f"{[it for it, _ in solves[name]]}, residuals "
+            f"{[f'{r:.2e}' for _, r in solves[name]]}")
+        for k, g in enumerate(("1", "g5")):
+            x = np.asarray([s[k] for s in sums[name]])
+            say(f"stoch flagship {name}: volume-summed Tr[Gamma={g} M^-1] "
+                f"per noise {[f'{v.real:+.6e}{v.imag:+.6e}j' for v in x]}, "
+                f"mean {x.mean().real:+.6e}{x.mean().imag:+.6e}j, variance "
+                f"{float(np.mean(np.abs(x - x.mean()) ** 2)):.6e}")
+    del mean, defl, res, op
+    torch.cuda.empty_cache()
+    worst = max(r for v in solves.values() for _, r in v)
+    if not (worst <= STOCH_TOL and finite):
+        raise AssertionError(f"stoch flagship: CG residual {worst:.2e} > "
+                             f"{STOCH_TOL:.0e} or estimates not finite")
+    if lk["wilson_m"] <= 0 or lk["loop_contract"] <= 0:
+        raise AssertionError(f"stoch flagship: K1 or K2 not launched: {lk}")
+
+    # 8^3x16: the kernels against the twins on the same eigenvectors
+    geom = LatticeGeometry(STOCH_TWIN_DIMS)
+    U = load_gauge_np("random", geom, seed=1)
+    gp = GaugeParam(dims=STOCH_TWIN_DIMS)
+    res, evals, _, rs = compute_evecs_production(
+        U, gp, ip, EigParam(**STOCH_EIG), seed=STOCH_EIG_SEED, device=dev)
+    data, its = {}, {}
+    for name, d in (("kernels", dev), ("twins", "cpu")):
+        op = build_kernel_dirac(U, gp, ip, device=d)
+        its[name] = []
+        t0 = time.perf_counter()
+        data[name] = stochastic_loop_trace_production(
+            op, geom, STOCH_TWIN_NOISES,
+            deflation=DeflationSpaceKernel.build(op, res.evecs.to(d), evals),
+            solver_tol=STOCH_TOL, seed=STOCH_SEED, solves=its[name]).cpu()
+        say(f"stoch 8^3x16 via {name} on {d}: "
+            f"{time.perf_counter() - t0:.2f} s, CG iterations "
+            f"{[it for it, _ in its[name]]}, residuals "
+            f"{[f'{r:.2e}' for _, r in its[name]]}")
+    a, b = data["kernels"], data["twins"]
+    err = float((a - b).abs().max() / b.abs().max())
+    say(f"stoch 8^3x16 kernels vs twins: rel {err:.2e} (tol "
+        f"{STOCH_TWIN_TOL:.0e}); eigensolve restarts {res.n_restarts}, max "
+        f"resid {max(rs):.2e}")
+    if not (err <= STOCH_TWIN_TOL and bool(torch.isfinite(a).all())):
+        raise AssertionError("stoch 8^3x16 through the kernels disagrees "
+                             "with the twins")
 
 
 def phase_halo(dev, stats):
@@ -2442,9 +2755,60 @@ def halo_bf16_pairs(dev, psi, U32, A32, kappa, forms, worst):
         del U, Ue, Ute, Al
 
 
+def keep_pos_run(argv):
+    """The loop CLI's flags through production.compute_loop_production
+    with keep_pos (no CLI flag asks for it), on the mesh the flags ask
+    for; returns the ProductionResult (data_pos global on every rank)."""
+    from mugiq_tpu_torch.cli import loop as cli_loop
+    from mugiq_tpu_torch.cli.common import (build_mesh, build_params,
+                                            read_momenta_file)
+    from mugiq_tpu_torch.io.gauge_io import load_gauge_np
+    from mugiq_tpu_torch.lattice import LatticeGeometry
+    from mugiq_tpu_torch.params import LoopParam
+    from mugiq_tpu_torch.production import compute_loop_production
+
+    args = cli_loop.parse_args(argv)
+    gp, ip, ep = build_params(args)
+    mesh, dev = build_mesh(args, gp.dims)
+    U = load_gauge_np(args.gauge, LatticeGeometry(gp.dims),
+                      seed=args.gauge_seed)
+    lp = LoopParam(momenta=read_momenta_file(args.momenta_filename),
+                   do_nonlocal=True,
+                   disp_entries=args.displace_entry_string.split(";"))
+    return compute_loop_production(U, gp, ip, ep, lp, keep_pos=True,
+                                   mesh=mesh, seed=ep.seed, device=dev)
+
+
+def evec_round_trip(out, name, argv, evecs, evals):
+    """parallel.distributed.save_evecs_sharded then load_evecs_sharded of
+    this rank's evecs (OUT/evecs_<name>.proc<r>.npz) on the mesh of the
+    eigensolve CLI's flags argv: (bitwise, the file's keys)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from mugiq_tpu_torch.cli import eigensolve as cli_eig
+    from mugiq_tpu_torch.cli.common import build_params
+    from mugiq_tpu_torch.parallel.distributed import (load_evecs_sharded,
+                                                      save_evecs_sharded)
+    from mugiq_tpu_torch.parallel.mesh import LatticeMesh
+
+    args = cli_eig.parse_args(argv)
+    mesh = LatticeMesh(args.mesh, build_params(args)[0].dims,
+                       rank=dist.get_rank(), device=evecs.device)
+    prefix = os.path.join(out, f"evecs_{name}")
+    path = save_evecs_sharded(prefix, evecs, evals, mesh)
+    back, ev = load_evecs_sharded(prefix, mesh, device=evecs.device)
+    with np.load(path) as z:
+        keys = sorted(z.files)
+    return (bool(torch.equal(back, evecs))
+            and bool(np.array_equal(ev, np.asarray(evals)))), keys
+
+
 def mesh_worker(out, spec):
     """One rank of run_mesh's launch: run each job's CLI as a main path
-    and write the rank's results to OUT/<job>.rank<r>.npz."""
+    and write the rank's results to OUT/<job>.rank<r>.npz ("loop-pos":
+    keep_pos_run, its data_pos; a "pc" job also round-trips its evecs
+    through the per-rank npz files)."""
     import numpy as np
     import torch.distributed as dist
     from pathlib import Path
@@ -2461,18 +2825,25 @@ def mesh_worker(out, spec):
             np.savez(Path(out) / f"{job['name']}.rank{dist.get_rank()}.npz",
                      **res)
             continue
-        loop = job["mode"] == "loop"
+        loop = job["mode"] in ("loop", "loop-pos")
         halo.reset_totals()
         run = {"loop": cli_loop.run, "eig": cli_eig.run,
-               "arnoldi": arnoldi_run}[job["mode"]]
+               "arnoldi": arnoldi_run, "loop-pos": keep_pos_run}[job["mode"]]
         got, wall, phases, launches = run_main_path(job["name"], run,
                                                     job["argv"], counters)
+        extra = {}
         if loop:
             res, data_mom = got, got.data_mom
             evals, sigma, resids = res.evals, res.sigma, res.resids
+            if res.data_pos is not None:
+                extra["data_pos"] = res.data_pos
         else:
             res, evals, sigma, resids = got
             data_mom = np.zeros(0)
+            if job["name"] == "pc":
+                extra["evec_round_trip"], extra["evec_keys"] = \
+                    evec_round_trip(out, job["name"], job["argv"],
+                                    res.evecs, evals)
         np.savez(Path(out) / f"{job['name']}.rank{dist.get_rank()}.npz",
                  evals=np.asarray(evals), sigma=np.asarray(sigma),
                  resids=np.asarray(resids), data_mom=data_mom,
@@ -2480,7 +2851,7 @@ def mesh_worker(out, spec):
                  wall=wall, phases=json.dumps(phases),
                  launches=json.dumps(launches),
                  halo=json.dumps(halo.TOTALS), backend=dist.get_backend(),
-                 world=dist.get_world_size())
+                 world=dist.get_world_size(), **extra)
     shutdown_distributed()
 
 
@@ -2705,12 +3076,15 @@ def phase_mesh_slice(counters):
             "mesh arnoldi slice, one device", arnoldi_run, ARNOLDI_SLICE_ARGS,
             counters)
         ref_arnoldi = (ev, None, r.n_restarts)
+        ref_pos, _, _, _ = run_main_path("mesh slice keep_pos, one device",
+                                         keep_pos_run, loop_args, counters)
         got = run_mesh("mesh slice pc --mesh 2 1", "2 1",
                        [("hop", "hop", loop_args),
                         ("pc", "eig", PC_SLICE_ARGS),
                         ("pc-bf16", "eig", PC_SLICE_BF16_ARGS),
                         ("block", "eig", block_args),
-                        ("arnoldi", "arnoldi", ARNOLDI_SLICE_ARGS)], "gloo")
+                        ("arnoldi", "arnoldi", ARNOLDI_SLICE_ARGS),
+                        ("loop-pos", "loop-pos", loop_args)], "gloo")
         hop_launches = check_sharded_hop("mesh slice bare hop 2 1",
                                          got["hop"])
         check_ranks("mesh slice pc 2 1", got["pc"], ref_pc, 1e-3,
@@ -2723,11 +3097,40 @@ def phase_mesh_slice(counters):
                     1e-3, ("parity_hop_halo",), ("parity_hop", "wilson_m"))
         check_ranks("mesh slice arnoldi M 2 1", got["arnoldi"], ref_arnoldi,
                     1e-3, ("wilson_m_halo",), ("wilson_m",))
+        check_ranks("mesh slice keep_pos loop 2 1", got["loop-pos"],
+                    (ref_pos.evals, ref_pos.data_mom, ref_pos.n_restarts),
+                    1e-3, ("wilson_m_halo", "loop_contract",
+                           "covariant_displace"), ("wilson_m",))
+        check_keep_pos_and_evecs(got, ref_pos.data_pos)
         return (got["pc"][0]["launches"]["parity_hop_halo"],
                 got["pc-bf16"][0]["launches"]["parity_hop_halo.bf16"],
                 hop_launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_keep_pos_and_evecs(got, want):
+    """mesh-slice's 2 1 launch: every rank's keep_pos data_pos (the global
+    position-space loops) within 1e-3 of max of the one-device run's (the
+    sharded loop's data_mom tolerance), and the pc job's evecs back bit
+    for bit through the per-rank npz files, under the JAX package's keys.
+    The GPU machine has no h5py, so the per-rank position-space files are
+    checked by the CPU tests only."""
+    import numpy as np
+    for r, d in enumerate(got["loop-pos"]):
+        err = float(np.abs(d["data_pos"] - want).max() / np.abs(want).max())
+        say(f"mesh slice keep_pos 2 1 rank {r}: data_pos {d['data_pos'].shape}"
+            f" vs one device rel {err:.2e} (tol 1e-3)")
+        if d["data_pos"].shape != want.shape or not err <= 1e-3:
+            raise AssertionError(f"mesh slice keep_pos rank {r} disagrees "
+                                 f"with one device")
+    for r, d in enumerate(got["pc"]):
+        keys = [str(k) for k in d["evec_keys"]]
+        say(f"mesh slice evec npz 2 1 rank {r}: round trip bitwise "
+            f"{bool(d['evec_round_trip'])}, keys {keys}")
+        if not (bool(d["evec_round_trip"])
+                and keys == ["evals", "global_shape", "index0", "shard0"]):
+            raise AssertionError(f"mesh slice evec npz rank {r}")
 
 
 def phase_mesh_flagship(flagship, counters):
@@ -2853,8 +3256,9 @@ def kernel_counters():
 PHASES = ("build", "kernels", "parity", "bf16", "identity", "slice",
           "pc-slice", "bf16-restart", "bf16-slice", "block-slice",
           "arnoldi-slice", "flagship", "bf16-flagship", "block-flagship",
-          "pc-flagship", "hopdir", "mg-slice", "mg-flagship", "hop", "halo",
-          "mesh-slice", "mesh-flagship", "api-slice", "api-fp64")
+          "pc-flagship", "hopdir", "mg-slice", "mg-flagship", "coarse-loop",
+          "stoch-flagship", "hop", "halo", "mesh-slice", "mesh-flagship",
+          "api-slice", "api-fp64")
 
 
 def main(argv=None):
@@ -2917,10 +3321,12 @@ def main(argv=None):
 def run_phases(phases, dev, counters, stats, launches):
     import torch
     flagship = None
-    # main-path launches of K1's and K6's bf16-spinor and batched forms
+    # main-path launches of K1's and K6's bf16-spinor and batched forms,
+    # and of K1 and K2 in the stochastic trace
     form_launches = stats.setdefault("form_launches",
                                      {"bf16": {}, "batch4": {},
-                                      "bf16_psi": {}, "all_bf16": {}})
+                                      "bf16_psi": {}, "all_bf16": {},
+                                      "stoch": {}})
     stats.setdefault("variant_s", {})
     for phase in phases:
         tp = time.perf_counter()
@@ -2982,6 +3388,10 @@ def run_phases(phases, dev, counters, stats, launches):
             phase_mg_slice(dev)
         elif phase == "api-slice":
             phase_api_slice()
+        elif phase == "coarse-loop":
+            phase_coarse_loop(counters)
+        elif phase == "stoch-flagship":
+            phase_stoch_flagship(dev, counters, form_launches["stoch"])
         elif phase == "api-fp64":
             phase_api_fp64(dev)
         elif phase == "mesh-slice":

@@ -22,7 +22,7 @@ from .eig.eigsolve import Eigensolver, EigsolveOutput
 from .lattice import LatticeGeometry
 from .loop import LoopComputer, LoopResult
 from .params import EigParam, GaugeParam, InvertParam, LoopParam, MGParam
-from .utils import log, not_ported, phase_timer, resolve_device
+from .utils import log, phase_timer, resolve_device
 
 DTYPES = (torch.complex64, torch.complex128)
 
@@ -119,10 +119,9 @@ def compute_loop(U, gauge: GaugeParam, inv: InvertParam, eig: EigParam,
     """Disconnected loops with (MG-deflated) eigenvectors (computeLoop,
     lib/interface_mugiq.cpp:175-248): the fine or MG-coarse eigensolve,
     the coarse eigenvectors prolongated, the loop measurement and the
-    momentum-space HDF5.  U_loop: the separate (smeared) gauge of the
-    displacements (tests/loop.cpp:901-918), default the unphased U."""
-    if loop_param.write_pos_space_hdf5:
-        not_ported("the position-space HDF5 writer", "item 4")
+    momentum- and position-space HDF5 (both g5-mapped).  U_loop: the
+    separate (smeared) gauge of the displacements (tests/loop.cpp:901-918),
+    default the unphased U."""
     if use_mg and compute_coarse:
         if mg is None:
             raise ValueError("use_mg requires MGParam")
@@ -155,4 +154,14 @@ def compute_loop(U, gauge: GaugeParam, inv: InvertParam, eig: EigParam,
         write_loops_hdf5_mom(fname, result.data_mom, result.momenta,
                              result.cparam.slot_labels())
         log(f"compute_loop: momentum-space loop data written to {fname}")
+    if loop_param.write_pos_space_hdf5:
+        fname = loop_param.fname_pos_h5
+        if not fname:
+            raise ValueError("write_pos_space_hdf5 set but fname_pos_h5 "
+                             "empty")
+        from .io.hdf5io import write_loops_hdf5_pos
+        from .phase import map_gamma_g5
+        write_loops_hdf5_pos(fname, map_gamma_g5(result.data_pos).cpu()
+                             .numpy(), result.cparam.slot_labels())
+        log(f"compute_loop: position-space loop data written to {fname}")
     return result, eig_res

@@ -45,11 +45,16 @@ eigensolve and prolongated eigenvectors:
 The parser defines every flag of the JAX CLI with its choices and
 default, so each of its invocations parses here.  --platform,
 --compile-cache, --autotune (and on the production path --loop-calc-type)
-drive JAX-only machinery and are logged with no other effect.  Values
-that need unported work raise NotImplementedError naming their ROADMAP
-item: --serve (item 13), --loop-write-pos-space yes (item 4),
---loop-coarse-ulocal yes (item 12), --mugiq-use-mg yes with --mesh (item
-15).
+drive JAX-only machinery and are logged with no other effect.
+--loop-write-pos-space yes writes the g5-mapped position-space loops
+(--loop-pos-space-filename; under --mesh one file per rank,
+<name>.proc<rank>.h5, io.hdf5io.assemble_loops_hdf5_pos joins them).
+--loop-coarse-ulocal yes (API path, with --mugiq-use-mg yes
+--mugiq-compute-coarse yes) assembles the coarse-space ultra-local loop
+and logs its shape and |L|_max, as the JAX CLI does; with --production it
+is logged and ignored.  Values that need unported work raise
+NotImplementedError naming their ROADMAP item: --serve (item 13),
+--mugiq-use-mg yes with --mesh (item 15).
 """
 
 import argparse
@@ -63,6 +68,10 @@ from .common import (MESH_NEEDS_PRODUCTION, add_dirac_args, add_eig_args,
                      log_production_prec, quiet_unless_primary,
                      read_momenta_file)
 from ..utils import not_ported
+
+# the JAX CLI's message (mugiq_tpu/cli/loop.py:150-151)
+COARSE_ULOCAL_NEEDS_MG = ("--loop-coarse-ulocal requires --mugiq-use-mg yes "
+                          "--mugiq-compute-coarse yes (coarse eigenvectors)")
 
 
 def _parse(argv):
@@ -88,7 +97,9 @@ def _parse(argv):
     g.add_argument("--loop-write-mom-space", choices=["yes", "no"],
                    default="no")
     g.add_argument("--loop-write-pos-space", choices=["yes", "no"],
-                   default="no", help="position-space HDF5 (not ported)")
+                   default="no",
+                   help="position-space HDF5 (g5-mapped; one file per "
+                        "rank under --mesh)")
     g.add_argument("--loop-do-momproj", choices=["yes", "no"], default="yes")
     g.add_argument("--loop-do-nonlocal", choices=["yes", "no"], default="no")
     g.add_argument("--displace-entry-string", default="",
@@ -99,7 +110,8 @@ def _parse(argv):
                    help="separate (smeared) gauge for displacements")
     g.add_argument("--loop-coarse-ulocal", choices=["yes", "no"],
                    default="no",
-                   help="the coarse-space ultra-local loop (not ported)")
+                   help="the coarse-space ultra-local loop of the MG-coarse "
+                        "eigenvectors (logged; the API path only)")
     add_production_args(g)
     g.add_argument("--serve", default="", metavar="DIR",
                    help="the resident server mode (not ported)")
@@ -124,17 +136,20 @@ def parse_args(argv=None):
 def run(argv=None):
     """Parse, run the production loop (--production) or the API path, log
     as the JAX CLI does; returns the ProductionResult, or the API path's
-    (LoopResult, EigsolveResult)."""
+    (LoopResult, EigsolveResult), and with --loop-coarse-ulocal yes the
+    triple (LoopResult, EigsolveResult, coarse loop), the coarse loop the
+    complex128 numpy array [P, 16, T] of mg.coarse_loop.coarse_loop_ulocal
+    (with --production the flag is logged and ignored, as the JAX CLI
+    ignores it there)."""
     p, args = _parse(argv)
     if args.mesh is not None and not args.production:
         p.error(MESH_NEEDS_PRODUCTION)
     if args.serve:
         not_ported("--serve (the resident production server)", "item 13")
-    if args.loop_write_pos_space == "yes":
-        not_ported("--loop-write-pos-space yes (the position-space HDF5 "
-                   "writer)", "item 4")
-    if args.loop_coarse_ulocal == "yes":
-        not_ported("--loop-coarse-ulocal", "item 12")
+    if (args.loop_coarse_ulocal == "yes" and not args.production
+            and not (args.mugiq_use_mg == "yes"
+                     and args.mugiq_compute_coarse == "yes")):
+        p.error(COARSE_ULOCAL_NEEDS_MG)
     from ..io.gauge_io import load_gauge_np, plaquette
     from ..lattice import LatticeGeometry
     from ..params import CalcType, FTSign, LoopParam
@@ -160,6 +175,8 @@ def run(argv=None):
         do_nonlocal=args.loop_do_nonlocal == "yes",
         disp_entries=[e for e in args.displace_entry_string.split(";") if e],
         fname_mom_h5=args.loop_mom_space_filename,
+        write_pos_space_hdf5=args.loop_write_pos_space == "yes",
+        fname_pos_h5=args.loop_pos_space_filename,
         calc_type=(CalcType(args.loop_calc_type) if not args.production
                    else CalcType.OPT_KERNEL),
     )
@@ -175,6 +192,10 @@ def run(argv=None):
     if not args.production:
         return _run_api(args, U, gp, ip, ep, lp, U_loop, use_mg, mg, device)
     log_production_prec(args)
+    if args.loop_coarse_ulocal == "yes":
+        log("--loop-coarse-ulocal yes applies to the API path (without "
+            "--production); the production loop ignores it, as mugiq-loop "
+            "does")
     if args.solve_type == "direct-pc":
         log("--solve-type direct-pc applies to the eigensolve CLI; the loop "
             "eigensolves the full operator, as mugiq-loop does")
@@ -199,7 +220,7 @@ def run(argv=None):
 def _run_api(args, U, gp, ip, ep, lp, U_loop, use_mg, mg, device):
     """The JAX CLI's branch without --production: api.compute_loop."""
     from .. import api
-    from ..utils import log, print_profile
+    from ..utils import log, phase_timer, print_profile
 
     t0 = time.time()
     result, eig_res = api.compute_loop(
@@ -207,8 +228,23 @@ def _run_api(args, U, gp, ip, ep, lp, U_loop, use_mg, mg, device):
         use_mg=use_mg, mg=mg, U_loop=U_loop, dtype=api_dtype(args),
         device=device)
     eig_res.print_evals()
+    coarse_loop = None
+    if args.loop_coarse_ulocal == "yes":
+        import numpy as np
+
+        from ..mg.coarse_loop import coarse_loop_ulocal
+        lam = np.asarray(eig_res.evals).real
+        with phase_timer("coarse-loop"):
+            coarse_loop = coarse_loop_ulocal(
+                eig_res.mg_env, eig_res.evecs, 1.0 / lam, eig_res.geom,
+                lp.momenta, int(lp.ft_sign))
+        log(f"coarse-space ultra-local loop assembled: shape "
+            f"{coarse_loop.shape}, |L|_max = "
+            f"{np.abs(coarse_loop).max():.6e}")
     log(f"Time for solution = {time.time() - t0:.3f} s")
     print_profile()
+    if coarse_loop is not None:
+        return result, eig_res, coarse_loop
     return result, eig_res
 
 

@@ -10,7 +10,8 @@ colour).
 
 Transfer holds the block-orthonormal basis V [Tc, Zc, Yc, Xc, ns_c, agg,
 n_vec] of n_vec null vectors (one batched QR) and applies P and R as
-batched [agg, n_vec] products over the blocks.
+batched [agg, n_vec] products over the blocks, a batch of fields as the
+rows of each block's product (V is read once, not copied per vector).
 """
 
 from dataclasses import dataclass
@@ -98,6 +99,14 @@ def _unblock_agg(phi: torch.Tensor, g: BlockGeometry) -> torch.Tensor:
                                            Xc * bx, g.ns_fine, g.nc_fine))
 
 
+def apply_R(h: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """h [..., Tc, Zc, Yc, Xc, ns_c, agg] (blocked fields, any leading
+    batch) times conj(V) [Tc, Zc, Yc, Xc, ns_c, agg, n_vec] per block:
+    one batched product over the blocks, the batch as its rows (a
+    broadcast matmul would copy V once per batch vector)."""
+    return torch.einsum("...tzyxsa,tzyxsav->...tzyxsv", h, V.conj())
+
+
 @dataclass
 class Transfer:
     """Orthonormal block transfer P / R between a fine and a coarse level
@@ -129,19 +138,18 @@ class Transfer:
     def restrict(self, psi: torch.Tensor) -> torch.Tensor:
         """R psi: [..., T, Z, Y, X, ns, nc] -> [..., Tc, Zc, Yc, Xc, ns_c,
         n_vec]."""
-        h = _block_agg(psi, self.geom)
-        return (h.unsqueeze(-2) @ self.V.conj()).squeeze(-2)
+        return apply_R(_block_agg(psi, self.geom), self.V)
 
     def restrict_masked(self, psi: torch.Tensor,
                         mask_agg: torch.Tensor) -> torch.Tensor:
         """R (mask * psi), mask over the aggregate components."""
         h = _block_agg(psi, self.geom) * mask_agg.to(psi.real.dtype)
-        return (h.unsqueeze(-2) @ self.V.conj()).squeeze(-2)
+        return apply_R(h, self.V)
 
     def prolong(self, phi: torch.Tensor) -> torch.Tensor:
         """P phi: [..., Tc, Zc, Yc, Xc, ns_c, n_vec] -> [..., T, Z, Y, X,
         ns, nc]."""
-        h = (self.V @ phi.unsqueeze(-1)).squeeze(-1)
+        h = torch.einsum("tzyxsav,...tzyxsv->...tzyxsa", self.V, phi)
         return _unblock_agg(h, self.geom)
 
     def probe_fine_vectors(self) -> torch.Tensor:

@@ -23,6 +23,7 @@ nothing switches backend by itself.  A rank's device is
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -118,6 +119,71 @@ def gather_global(obj) -> list:
     out = [None] * dist.get_world_size()
     dist.all_gather_object(out, obj)
     return out
+
+
+def save_evecs_sharded(path_prefix: str, evecs, evals=None,
+                       mesh=None) -> str:
+    """Per-rank evec checkpoint: this rank writes its block of the global
+    kernel-layout batch [n, T, 24, Z, Y*X] (or [n, T, 24, Z, Y*X/2]
+    packed) to ``<prefix>.proc<rank>.npz`` with the JAX package's keys:
+    global_shape, shard0 (the block), index0 ((start, stop) of the block
+    on every axis of the global array) and evals (the scale-out
+    alternative to gathering to the primary; reference analog: per-rank
+    QIO volumes).  mesh: the run's LatticeMesh (None: one rank holding
+    the whole batch).  Returns the path written."""
+    block = np.asarray(evecs.cpu().numpy() if isinstance(evecs, torch.Tensor)
+                       else evecs)
+    rank = 0 if mesh is None else mesh.rank
+    gshape = (tuple(block.shape) if mesh is None
+              else _global_batch_shape(block.shape, mesh))
+    index = _batch_index(gshape, mesh)
+    extra = {} if evals is None else {"evals": np.asarray(evals)}
+    path = f"{path_prefix}.proc{rank}.npz"
+    np.savez(path, global_shape=np.asarray(gshape, dtype=np.int64),
+             shard0=block, index0=np.asarray(index, dtype=np.int64), **extra)
+    return path
+
+
+def load_evecs_sharded(path_prefix: str, mesh=None, device="cuda"):
+    """(this rank's block as a torch tensor on `device`, evals or None)
+    from save_evecs_sharded's file of this rank (or the JAX package's
+    file of a single-device array).  The mesh must have the saving run's
+    shape: a block that is not this rank's raises."""
+    rank = 0 if mesh is None else mesh.rank
+    with np.load(f"{path_prefix}.proc{rank}.npz") as z:
+        gshape = tuple(int(d) for d in z["global_shape"])
+        # a stop of -1 is the JAX writer's whole axis
+        index = [[a, d if b < 0 else b]
+                 for (a, b), d in zip(z["index0"].tolist(), gshape)]
+        block = z["shard0"]
+        evals = z["evals"] if "evals" in z.files else None
+    want = _batch_index(gshape, mesh)
+    if index != want:
+        raise ValueError(
+            f"{path_prefix}.proc{rank}.npz holds the block {index} of "
+            f"{list(gshape)}, but rank {rank} of this mesh holds {want}: "
+            f"load on a mesh of the saving run's shape")
+    return torch.from_numpy(block).to(device), evals
+
+
+def _global_batch_shape(block_shape, mesh):
+    """The global batch shape of a rank's block [n, Tl, 24, Zl, Yl*W]."""
+    s = list(block_shape)
+    s[1] *= mesh.shape["t"]
+    s[-2] *= mesh.shape["z"]
+    s[-1] *= mesh.shape["y"]
+    return tuple(s)
+
+
+def _batch_index(gshape, mesh):
+    """[[start, stop], ...] of this rank's block on every axis of a global
+    batch (t on axis 1)."""
+    if mesh is None:
+        return [[0, int(d)] for d in gshape]
+    idx = mesh._block(gshape, 1, mesh.rank)
+    return [[0 if sl.start is None else sl.start,
+             d if sl.stop is None else sl.stop]
+            for sl, d in zip(idx, gshape)]
 
 
 def shutdown_distributed() -> None:

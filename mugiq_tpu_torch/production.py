@@ -28,7 +28,8 @@ import torch
 
 from .block_lanczos import block_lanczos_hermitian_realpair
 from .dirac_kernel import WilsonDiracKernel
-from .io.hdf5io import write_loops_hdf5_mom
+from .io.hdf5io import (write_loops_hdf5_mom, write_loops_hdf5_pos,
+                        write_loops_hdf5_pos_sharded)
 from .kernels.contract import covariant_displace, gamma_project, loop_contract
 from .lanczos import (lanczos_hermitian_realpair, norm,
                       rayleigh_ritz_refine)
@@ -296,16 +297,12 @@ def compute_loop_production(U_np: np.ndarray, gauge: GaugeParam,
     mesh (a parallel.mesh.LatticeMesh): the sharded loop, one rank's block
     per process on mesh.device (compute_evecs_production's mesh, then
     _measure_production_sharded); data_mom is the global result on every
-    rank and only the primary writes the HDF5 file."""
+    rank and only the primary writes the momentum-space file; keep_pos
+    returns the global data_pos on every rank, and the position-space
+    file is one per rank (<fname_pos_h5>.proc<rank>.h5)."""
     if mesh is not None and use_mg:
         not_ported("the MG-deflated loop under a mesh (the JAX package's "
                     "sharded fine-level MG setup)", "item 15")
-    if loop_param.write_pos_space_hdf5:
-        not_ported("the position-space HDF5 writer (and its sharded form, "
-                    "write_loops_hdf5_pos_sharded)", "item 4")
-    if mesh is not None and keep_pos:
-        not_ported("keep_pos under a mesh (the position-space loops of a "
-                    "sharded run)", "item 4")
     dev = resolve_device(device) if mesh is None else mesh.device
     if use_mg:
         if mg_setup not in ("auto", "kernel"):
@@ -333,7 +330,7 @@ def compute_loop_production(U_np: np.ndarray, gauge: GaugeParam,
             geom, loop_param, cp, evecs, sigma, U_meas, keep_pos)
     else:
         data_mom, pos_np = _measure_production_sharded(
-            geom, loop_param, cp, evecs, sigma, U_meas, mesh)
+            geom, loop_param, cp, evecs, sigma, U_meas, mesh, keep_pos)
     return ProductionResult(
         evals=evals, sigma=sigma, resids=np.asarray(rs),
         data_mom=data_mom, data_pos=pos_np,
@@ -445,14 +442,15 @@ def _measure_production_kernel(geom, loop_param, cp, evecs_k, sigma,
 
 
 def _measure_production_sharded(geom, loop_param, cp, evecs_k, sigma,
-                                U_loop_np, mesh):
+                                U_loop_np, mesh, keep_pos=False):
     """The measurement of one rank's block [n, Tl, 24, Zl, Yl*X]: K2 on the
     local batch (site-local); a displacement step along an axis that the
     mesh partitions runs K3 on the batch extended by one halo slice along
     that axis, with links extended alike, and keeps the interior (with one
     halo slice, K3's periodic wrap never reaches an interior row); along an
     axis the rank holds whole, K3 as on one device.  The tail projects the
-    rank's sites on its block of the phases and sums the ranks' t rows."""
+    rank's sites on its block of the phases and sums the ranks' t rows;
+    keep_pos returns the global position-space loops (gathered)."""
     from .parallel.halo import HaloExchange
     from .parallel.shard_dslash import extend_along
 
@@ -500,15 +498,18 @@ def _measure_production_sharded(geom, loop_param, cp, evecs_k, sigma,
         data_pos = torch.stack(slots)          # [l, 2, 16, Tl, Zl, Yl, X]
         del slots
     del U_loop_k, U_ext
-    data_mom, _ = _measure_tail(geom, loop_param, cp, data_pos, False, mesh)
-    return data_mom, None
+    return _measure_tail(geom, loop_param, cp, data_pos, keep_pos, mesh)
 
 
 def _measure_tail(geom, loop_param, cp, data_pos, keep_pos, mesh=None):
     """g5 map + momentum projection + HDF5 + keep_pos epilogue.  mesh:
     data_pos is a rank's block; its projection fills the rank's t rows of
-    the global result, summed over the ranks, and the primary writes."""
+    the global result, summed over the ranks, and the primary writes the
+    momentum-space file; the g5-mapped position-space loops go to one
+    file per rank (write_loops_hdf5_pos_sharded) under a mesh of more
+    than one rank, and keep_pos returns the global data_pos, gathered."""
     data_mom = None
+    mapped = None
     if loop_param.do_mom_proj:
         if mesh is None:
             ph = phase_matrix_planar(geom, loop_param.momenta,
@@ -543,8 +544,33 @@ def _measure_tail(geom, loop_param, cp, data_pos, keep_pos, mesh=None):
                                  cp.slot_labels())
             log(f"production loop data written to {loop_param.fname_mom_h5}")
 
+    if loop_param.write_pos_space_hdf5 and loop_param.fname_pos_h5:
+        # g5-mapped, as the API path writes it (the momentum-space
+        # output's convention)
+        if mapped is None:
+            mapped = map_gamma_g5_planar(data_pos)
+        a = mapped.cpu().numpy()               # [l, 2, 16, T, Z, Y, X]
+        if mesh is not None and mesh.world > 1:
+            path = write_loops_hdf5_pos_sharded(loop_param.fname_pos_h5, a,
+                                                cp.slot_labels(), mesh)
+            log(f"production pos-space loop shard written to {path}")
+        else:
+            write_loops_hdf5_pos(loop_param.fname_pos_h5,
+                                 a[:, 0] + 1j * a[:, 1], cp.slot_labels())
+            log(f"production pos-space loop data written to "
+                f"{loop_param.fname_pos_h5}")
+        del a
+    del mapped
+
     pos_np = None
     if keep_pos:
+        if mesh is not None:
+            # [l, 2, 16, Tl, Zl, Yl, X] -> the fused y*x axis that
+            # gather_field assembles, and back
+            l, two, g, Tl, Zl, Yl, X = data_pos.shape
+            data_pos = mesh.gather_field(
+                data_pos.reshape(l, two, g, Tl, Zl, Yl * X), lead=3
+            ).reshape(l, two, g, geom.Lt, geom.Lz, geom.Ly, X)
         a = data_pos.cpu().numpy()
         pos_np = a[:, 0] + 1j * a[:, 1]
     return data_mom, pos_np

@@ -1,5 +1,7 @@
-"""Krylov solvers on complex fields (port of mugiq_tpu.solvers cg and
-cgne): the multigrid null-vector setup and the Schur solve use them.
+"""Krylov solvers (port of mugiq_tpu.solvers cg, cgne and cg_realpair):
+the multigrid null-vector setup, the Schur solve and the API stochastic
+trace run cg on complex fields; the production stochastic trace runs
+cg_realpair on real kernel-layout fields.
 
 The iteration runs on the host loop; with tol > 0 each step reads the
 residual norm back to decide whether to stop, with tol = 0 (a fixed
@@ -8,7 +10,7 @@ A leading batch axis (batched=True) runs one independent CG per vector
 with its own step sizes, as jax.vmap of the JAX solve does.
 """
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -59,3 +61,36 @@ def cgne(matvec_M: Callable, matvec_Mdag: Callable, b: torch.Tensor,
     """M x = b through the normal equations M^dag M x = M^dag b."""
     return cg(lambda v: matvec_Mdag(matvec_M(v)), matvec_Mdag(b), x0=x0,
               tol=tol, maxiter=maxiter)
+
+
+def cg_realpair(matvec: Callable, b: torch.Tensor, x0=None, tol: float = 1e-8,
+                maxiter: int = 1000,
+                reduce: Optional[Callable] = None) -> SolveResult:
+    """CG for a Hermitian positive-definite operator on real-pair fields
+    (the kernel layout, real and imaginary parts in separate rows): every
+    CG scalar of an HPD system is real, so plain real dots over the whole
+    array suffice.  reduce: the sum over ranks of a sharded field (the
+    sharded operator's mesh.all_reduce), applied to every dot.  The
+    iteration reads one scalar back to the host per step (the residual
+    norm of its stopping test); the scalars stay on the device."""
+    red = reduce or (lambda v: v)
+
+    def dot(a, c):
+        return red(torch.sum(a * c))
+
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    b_norm = float(torch.sqrt(dot(b, b)))
+    r = b - matvec(x) if x0 is not None else b.clone()
+    p = r.clone()
+    rs = dot(r, r)
+    k = 0
+    while k < maxiter and float(torch.sqrt(rs)) > tol * b_norm:
+        ap = matvec(p)
+        alpha = rs / dot(p, ap)
+        x.add_(alpha * p)
+        r.sub_(alpha * ap)
+        rs_new = dot(r, r)
+        p = r + (rs_new / rs) * p
+        rs = rs_new
+        k += 1
+    return SolveResult(x=x, resid=torch.sqrt(rs) / b_norm, iters=k)

@@ -460,7 +460,3 @@ def test_api_device_and_dtype_checks(gauge, monkeypatch):
     with pytest.raises(ValueError, match="complex64 or"):
         api.compute_evecs_mugiq(gauge, *port_params(), EigParam(),
                                 dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        api.compute_loop(gauge, *port_params(), EigParam(),
-                         LoopParam(write_pos_space_hdf5=True,
-                                   fname_pos_h5="x.h5"), device="cpu")

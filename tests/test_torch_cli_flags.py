@@ -111,9 +111,6 @@ DIMS = ["--dims", "4", "4", "4", "4", "--device", "cpu"]
 
 @pytest.mark.parametrize("cli, flags, item", [
     ("loop", ["--serve", "requests"], "item 13"),
-    ("loop", ["--loop-write-pos-space", "yes", "--loop-pos-space-filename",
-              "pos.h5"], "item 4"),
-    ("loop", ["--loop-coarse-ulocal", "yes"], "item 12"),
     ("loop", ["--mugiq-use-mg", "yes", "--mesh", "1", "1", "--production"],
      "item 15")])
 def test_unported_values_name_their_item(cli, flags, item):

@@ -49,7 +49,9 @@ _IMPORT_ALL = (
     "mugiq_tpu_torch.solvers, mugiq_tpu_torch.displace, "
     "mugiq_tpu_torch.eig.lanczos, mugiq_tpu_torch.eig.arnoldi, "
     "mugiq_tpu_torch.eig.eigsolve, mugiq_tpu_torch.mg.setup, "
-    "mugiq_tpu_torch.mg.coarse, mugiq_tpu_torch.mg.mg, chip_smoke\n")
+    "mugiq_tpu_torch.mg.coarse, mugiq_tpu_torch.mg.mg, "
+    "mugiq_tpu_torch.mg.coarse_loop, mugiq_tpu_torch.stochastic, "
+    "mugiq_tpu_torch.stochastic_production, chip_smoke\n")
 
 
 def test_import_leaves_jax_out():

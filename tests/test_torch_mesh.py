@@ -89,12 +89,15 @@ BF16_BASIS = ["--basis-precision", "bf16", "--eig-tol", "1e-3",
 # mesh -> jobs (name, mode); one torch.distributed.run per mesh
 LAUNCHES = {"2 1": [("loop", "loop"), ("pc", "eig"), ("block", "eig"),
                     ("arnoldi", "arnoldi"), ("loop-bf16", "loop"),
-                    ("pc-bf16", "eig")],
+                    ("pc-bf16", "eig"), ("loop-pos", "loop-pos"),
+                    ("stoch", "stoch")],
             "2 2": [("loop", "loop"), ("pc-clover", "eig")],
             "2 2 2": [("loop", "loop"), ("pc", "eig")]}
-# the f32 runs, held to the single device bit for bit in their restarts
-RUNS = [(m, name) for m, jobs in LAUNCHES.items() for name, _ in jobs
-        if not name.endswith("-bf16")]
+# the f32 CLI runs, held to the single device bit for bit in their
+# restarts (the keep_pos loop and the stochastic trace have tests of their
+# own)
+RUNS = [(m, name) for m, jobs in LAUNCHES.items() for name, mode in jobs
+        if not name.endswith("-bf16") and mode in ("loop", "eig", "arnoldi")]
 BF16_RUNS = [(m, name) for m, jobs in LAUNCHES.items() for name, _ in jobs
              if name.endswith("-bf16")]
 # the Arnoldi of M has no JAX reference at this size (a 6144^2 dense eig)
@@ -102,6 +105,12 @@ JAX_RUNS = [r for r in RUNS if r[1] != "arnoldi"]
 # the unfiltered Arnoldi of M: its smallest-modulus eigenvalues
 ARNOLDI = BASE[:BASE.index("--eig-use-poly-acc")] + BASE[
     BASE.index("--eig-poly-deg") + 2:] + ["--eig-nkr", "48"]
+# the stochastic trace's lattice, gauge and kappa (JAX
+# test_stochastic_trace_sharded_matches_single's, the port's numpy gauge)
+STOCH_DIMS = (8, 4, 4, 8)
+STOCH = ["--dims", *map(str, STOCH_DIMS), "--gauge", "weak:0.3",
+         "--gauge-seed", "33", "--kappa", "0.10", "--production",
+         "--device", "cpu"]
 
 
 def _argv(name, mom):
@@ -110,7 +119,8 @@ def _argv(name, mom):
             "block": PC + ["--eig-block-size", "2"],
             "arnoldi": ARNOLDI,
             "loop-bf16": loop + BF16_BASIS + ["--link-precision", "bf16"],
-            "pc-bf16": PC + BF16_BASIS}[name]
+            "pc-bf16": PC + BF16_BASIS, "loop-pos": loop,
+            "stoch": STOCH}[name]
 
 
 def _evec_file(out):
@@ -149,6 +159,32 @@ def _jax_refs():
         out[name] = (np.sort(r.evals.real), None)
     out["block"] = out["pc"]
     return out
+
+
+def _single_extra(mom, out):
+    """The single-device references of the keep_pos loop (its data_pos and
+    its position-space file, OUT/pos_single.h5) and of the stochastic
+    trace."""
+    from torch_mesh_worker import loop_pos, stoch_deflation
+    from torch_mesh_worker import STOCH as STOCH_KW
+
+    from mugiq_tpu_torch.lattice import LatticeGeometry
+    from mugiq_tpu_torch.params import GaugeParam, InvertParam
+    from mugiq_tpu_torch.production import build_kernel_dirac
+    from mugiq_tpu_torch.stochastic_production import (
+        stochastic_loop_trace_production)
+    from mugiq_tpu_torch.io.gauge_io import load_gauge_np
+
+    d = out / "single"
+    d.mkdir()
+    res = loop_pos(_argv("loop-pos", mom), None, d)
+    geom = LatticeGeometry(STOCH_DIMS)
+    op = build_kernel_dirac(load_gauge_np("weak:0.3", geom, seed=33),
+                            GaugeParam(dims=STOCH_DIMS),
+                            InvertParam(kappa=0.10), device="cpu")
+    trace = stochastic_loop_trace_production(
+        op, geom, deflation=stoch_deflation(op, op.field_shape), **STOCH_KW)
+    return {"loop-pos": (res, d / "pos"), "stoch": trace.numpy()}
 
 
 def _single(name, mom):
@@ -197,7 +233,8 @@ def runs(tmp_path_factory):
                 "port": {n: _single(n, mom) for n in ("loop", "pc",
                                                       "pc-clover", "block",
                                                       "arnoldi", "loop-bf16",
-                                                      "pc-bf16")}}
+                                                      "pc-bf16")},
+                "extra": _single_extra(mom, d)}
     finally:
         for p, _, _, log in procs.values():
             try:
@@ -340,6 +377,75 @@ def test_mesh_evec_outfile_is_the_global_field(runs, mesh):
     np.testing.assert_allclose(s, 1.0, atol=1e-5)
 
 
+def test_mesh_keep_pos_is_the_single_device_data_pos(runs):
+    """keep_pos over 2 1 returns the global position-space loops on every
+    rank: the single-device data_pos within 1e-5 of its max (the
+    tolerance of the sharded loop's data_mom); the ranks' position-space
+    files assemble into the g5-mapped data_pos, bit for bit, and into the
+    single-device file's data within 1e-5 of its max."""
+    import h5py
+
+    from mugiq_tpu_torch.gamma import GAMMA_NAMES
+    from mugiq_tpu_torch.io.hdf5io import assemble_loops_hdf5_pos
+    from mugiq_tpu_torch.phase import map_gamma_g5
+
+    got, refs = runs
+    ref, single_file = refs["extra"]["loop-pos"]
+    want = ref.data_pos
+    assert want.shape == (5, 16, 8, 4, 4, 4)
+    ranks = got[("2 1", "loop-pos")]
+    for r, res in enumerate(ranks):
+        assert int(res["n_restarts"]) == ref.n_restarts, r
+        assert res["data_pos"].shape == want.shape
+        np.testing.assert_allclose(res["data_pos"], want,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=f"rank {r}")
+        np.testing.assert_array_equal(res["data_pos"], ranks[0]["data_pos"])
+    labels = ["disp_0", "disp_+z_1", "disp_+z_2", "disp_-t_1", "disp_+y_1"]
+    # the 2 1 launch's directory, beside the single-device run's
+    prefix = str(single_file.parent.parent / "21" / "pos")
+    files = assemble_loops_hdf5_pos(prefix, "", labels)
+    mapped = map_gamma_g5(torch.from_numpy(ranks[0]["data_pos"])).numpy()
+    assert files.tobytes() == mapped.tobytes()
+    with h5py.File(single_file) as f:
+        g5 = f["disp_+z_2/g5/loop"][()]
+    np.testing.assert_allclose(files[2, GAMMA_NAMES.index("g5")],
+                               g5[..., 0] + 1j * g5[..., 1],
+                               atol=1e-5 * np.abs(g5).max())
+
+
+@pytest.mark.parametrize("mesh", [m for m, jobs in LAUNCHES.items()
+                                  if ("pc", "eig") in jobs])
+def test_mesh_evecs_sharded_round_trip(runs, mesh):
+    """save_evecs_sharded / load_evecs_sharded on every rank: the rank's
+    evecs back bit for bit, under the JAX package's npz keys."""
+    got, _ = runs
+    for r, res in enumerate(got[(mesh, "pc")]):
+        assert bool(res["evec_roundtrip"]), r
+        assert sorted(res["evec_keys"]) == ["evals", "global_shape",
+                                            "index0", "shard0"]
+
+
+def test_mesh_stochastic_trace_matches_single_device(runs):
+    """stochastic_loop_trace_production on ShardedWilsonKernel over 2 1 at
+    (8, 4, 4, 8), deflated: every rank's block of [2, 16, T, Z, Y, X]
+    equals the single-device estimate's block (JAX's rtol 1e-4, atol
+    1e-5; same noise, reductions in another order)."""
+    from mugiq_tpu_torch.parallel.mesh import LatticeMesh
+
+    got, refs = runs
+    ref = refs["extra"]["stoch"]
+    assert ref.shape == (2, 16, 8, 4, 4, 8)
+    for r, res in enumerate(got[("2 1", "stoch")]):
+        m = LatticeMesh((2, 1), STOCH_DIMS, rank=r, device="cpu")
+        o, lo = m.origin, m.local
+        want = ref[:, :, o["t"]:o["t"] + lo["t"], o["z"]:o["z"] + lo["z"],
+                   o["y"]:o["y"] + lo["y"]]
+        assert res["data"].shape == want.shape
+        np.testing.assert_allclose(res["data"], want, rtol=1e-4, atol=1e-5,
+                                   err_msg=f"rank {r}")
+
+
 def test_one_rank_mesh_equals_single_device(tmp_path):
     """--mesh 1 1 in one process without a group: every sharded code path
     but the transfer (halos are local periodic copies)."""
@@ -351,6 +457,50 @@ def test_one_rank_mesh_equals_single_device(tmp_path):
     np.testing.assert_allclose(b.evals, a.evals, rtol=1e-7)
     np.testing.assert_allclose(b.data_mom, a.data_mom,
                                atol=1e-6 * np.abs(a.data_mom).max())
+
+
+def test_evecs_sharded_files_match_jax(tmp_path):
+    """save_evecs_sharded / load_evecs_sharded in one process, rank by rank
+    (LatticeMesh geometry without a group): every rank's block back bit
+    for bit under the JAX package's keys; a mesh of another shape raises;
+    one-rank files pass between the packages both ways."""
+    import jax
+    from jax.sharding import SingleDeviceSharding
+
+    from mugiq_tpu.parallel import distributed as jdist
+    from mugiq_tpu_torch.parallel.distributed import (load_evecs_sharded,
+                                                      save_evecs_sharded)
+    from mugiq_tpu_torch.parallel.mesh import LatticeMesh
+
+    rng = np.random.default_rng(4)
+    V = torch.from_numpy(rng.standard_normal((3, 8, 24, 4, 16)).astype(
+        np.float32))
+    ev = rng.uniform(size=3)
+    prefix = str(tmp_path / "ev")
+    for shape in ((2, 1), (2, 2, 2)):
+        for r in range(int(np.prod(shape))):
+            m = LatticeMesh(shape, DIMS, rank=r, device="cpu")
+            blk = m.local_block(V, lead=1).contiguous()
+            path = save_evecs_sharded(prefix, blk, ev, m)
+            with np.load(path) as z:
+                assert sorted(z.files) == ["evals", "global_shape", "index0",
+                                           "shard0"]
+                assert tuple(z["global_shape"]) == tuple(V.shape)
+            got, got_ev = load_evecs_sharded(prefix, m, device="cpu")
+            assert torch.equal(got, blk) and np.array_equal(got_ev, ev)
+    with pytest.raises(ValueError, match="saving run's shape"):
+        load_evecs_sharded(prefix, LatticeMesh((2, 2), DIMS, rank=0,
+                                               device="cpu"), device="cpu")
+    # one-rank files: JAX's loader reads the port's, and back
+    save_evecs_sharded(str(tmp_path / "one"), V, ev)
+    arr, jev = jdist.load_evecs_sharded(
+        str(tmp_path / "one"), SingleDeviceSharding(jax.devices()[0]))
+    assert np.array_equal(np.asarray(arr), V.numpy())
+    assert np.array_equal(jev, ev)
+    jdist.save_evecs_sharded(str(tmp_path / "jax"), jnp.asarray(V.numpy()),
+                             ev)
+    got, got_ev = load_evecs_sharded(str(tmp_path / "jax"), device="cpu")
+    assert torch.equal(got, V) and np.array_equal(got_ev, ev)
 
 
 def test_nccl_with_shared_cards_raises(monkeypatch):

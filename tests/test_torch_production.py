@@ -174,22 +174,13 @@ def test_nonnormal_operator_errors_match_jax(kw, match):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(use_mg=True, mesh=object()), dict(mesh="1 1", keep_pos=True),
-    dict(use_mg=True, mg_setup="host"),
-    dict(loop_param=LoopParam(write_pos_space_hdf5=True))])
+    dict(use_mg=True, mesh=object()), dict(use_mg=True, mg_setup="host")])
 def test_loop_options_outside_slice_raise(kw):
-    from mugiq_tpu_torch.parallel.mesh import LatticeMesh
-
-    kw = dict(kw)
-    if kw.get("mesh") == "1 1":
-        # the sharded loop is ported; its position-space output is not
-        kw["mesh"] = LatticeMesh((1, 1), DIMS, device="cpu")
-    lp = kw.pop("loop_param", LoopParam())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compute_loop_production(_gauge(), GaugeParam(dims=DIMS),
                                 InvertParam(kappa=0.13),
-                                EigParam(n_ev=2, n_kr=8), lp, device="cpu",
-                                **kw)
+                                EigParam(n_ev=2, n_kr=8), LoopParam(),
+                                device="cpu", **kw)
 
 
 @pytest.mark.slow

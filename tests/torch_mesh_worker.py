@@ -3,17 +3,25 @@
     python -m torch.distributed.run --standalone --nproc-per-node N \\
         tests/torch_mesh_worker.py OUTDIR JOBS.json
 
-JOBS.json lists {"name", "mode" ("loop", "eig" or "arnoldi"), "argv"} jobs
-whose CLI flags share one --mesh ("arnoldi": the eigensolve CLI's flags,
-solved for EigOperator.M by production.compute_evecs_production, which no
-CLI reaches).  For each job the rank checks its sharded operator
-on a random field against the single-device operator's block of the same
-field (M, M^dag, M^dag M: the full operator for "loop", the packed one for
-"eig --solve-type direct-pc"; for "loop" also the bare hop _hop / _hop_dag
+JOBS.json lists {"name", "mode" ("loop", "eig", "arnoldi", "loop-pos" or
+"stoch"), "argv"} jobs whose CLI flags share one --mesh ("arnoldi": the
+eigensolve CLI's flags, solved for EigOperator.M by
+production.compute_evecs_production, which no CLI reaches; "loop-pos":
+the loop CLI's flags, run by production.compute_loop_production with
+keep_pos and the position-space writer, one file per rank; "stoch": the
+loop CLI's lattice, gauge and kappa, the deflated stochastic trace of
+stochastic_production on the rank's block, see stoch()).  For each CLI
+job the rank checks its sharded operator on a random field against the
+single-device operator's block of the same field (M, M^dag, M^dag M: the
+full operator for "loop", the packed one for "eig --solve-type
+direct-pc"; for "loop" also the bare hop _hop / _hop_dag
 against K4's twin on the global field) and the interior/boundary split
 against the single pass, bit for bit (with --basis-precision bf16 on a
 bf16 field, the operators' outputs bf16); then runs the loop or eigensolve
-CLI's run() and writes its results to OUTDIR/<name>.rank<r>.npz.
+CLI's run() and writes its results to OUTDIR/<name>.rank<r>.npz.  A "pc"
+job also saves its evecs with parallel.distributed.save_evecs_sharded
+(OUTDIR/evecs_<name>.proc<r>.npz), loads them back and records whether
+the round trip was bitwise and the file's keys.
 """
 
 import json
@@ -108,9 +116,96 @@ def arnoldi(argv, mesh):
                                     device=args.device)
 
 
+# the deflated stochastic trace of the "stoch" job (the JAX test
+# test_stochastic_trace_sharded_matches_single's recipe, with a deflation
+# space of seeded random vectors): noises, solver tol, maxiter, seed, the
+# deflation space's size and eigenvalues
+STOCH = dict(n_noise=2, solver_tol=1e-5, solver_maxiter=500, seed=5)
+STOCH_EVALS = (0.5, 0.6, 0.7, 0.8)
+
+
+def stoch_deflation(op, field_shape, mesh=None):
+    """The "stoch" job's deflation space: the rank's block (or, without a
+    mesh, all) of 4 seeded random kernel-layout vectors of unit norm."""
+    from mugiq_tpu_torch.stochastic_production import DeflationSpaceKernel
+
+    V = np.random.default_rng(9).standard_normal(
+        (len(STOCH_EVALS),) + tuple(field_shape))
+    V /= np.linalg.norm(V.reshape(len(V), -1), axis=1).reshape(
+        (-1,) + (1,) * len(field_shape))
+    V = torch.from_numpy(V.astype(np.float32))
+    if mesh is not None:
+        V = mesh.local_block(V, lead=1).contiguous()
+    return DeflationSpaceKernel.build(op, V, np.asarray(STOCH_EVALS))
+
+
+def stoch(argv, mesh):
+    """The deflated stochastic trace on this rank's block: the operator's
+    block of the global kernel operator of the flags' gauge and kappa."""
+    from mugiq_tpu_torch.stochastic_production import (
+        stochastic_loop_trace_production)
+
+    args = cli_loop.parse_args(argv)
+    gp, ip, _ = build_params(args)
+    geom = LatticeGeometry(gp.dims)
+    U = load_gauge_np(args.gauge, geom, seed=args.gauge_seed)
+    single = build_kernel_dirac(U, gp, ip, device="cpu")
+    op = ShardedWilsonKernel.from_kernel_op(mesh, single)
+    ds = stoch_deflation(op, single.field_shape, mesh)
+    return stochastic_loop_trace_production(op, geom, deflation=ds, **STOCH)
+
+
+def loop_pos(argv, mesh, out):
+    """The loop CLI's flags through compute_loop_production with keep_pos
+    and the position-space writer (OUT/pos.proc<r>.h5)."""
+    from mugiq_tpu_torch.cli.common import read_momenta_file
+    from mugiq_tpu_torch.params import LoopParam
+    from mugiq_tpu_torch.production import compute_loop_production
+
+    args = cli_loop.parse_args(argv)
+    gp, ip, ep = build_params(args)
+    U = load_gauge_np(args.gauge, LatticeGeometry(gp.dims),
+                      seed=args.gauge_seed)
+    lp = LoopParam(momenta=read_momenta_file(args.momenta_filename),
+                   do_nonlocal=True,
+                   disp_entries=args.displace_entry_string.split(";"),
+                   write_pos_space_hdf5=True, fname_pos_h5=str(out / "pos"))
+    return compute_loop_production(U, gp, ip, ep, lp, keep_pos=True,
+                                   mesh=mesh, seed=ep.seed,
+                                   device=args.device)
+
+
+def evec_roundtrip(out, name, res, evals, mesh):
+    """save_evecs_sharded then load_evecs_sharded of the rank's evecs:
+    (bitwise, the file's keys)."""
+    from mugiq_tpu_torch.parallel.distributed import (load_evecs_sharded,
+                                                      save_evecs_sharded)
+
+    path = save_evecs_sharded(str(out / f"evecs_{name}"), res.evecs, evals,
+                              mesh)
+    back, ev = load_evecs_sharded(str(out / f"evecs_{name}"), mesh,
+                                  device=mesh.device)
+    with np.load(path) as z:
+        keys = sorted(z.files)
+    same = (torch.equal(back, res.evecs.cpu())
+            and np.array_equal(ev, np.asarray(evals)))
+    return same, keys
+
+
 def main():
     out = Path(sys.argv[1])
     for job in json.loads(Path(sys.argv[2]).read_text()):
+        if job["mode"] in ("loop-pos", "stoch"):
+            args = cli_loop.parse_args(job["argv"])
+            mesh, _ = build_mesh(args, build_params(args)[0].dims)
+            if job["mode"] == "stoch":
+                got = {"data": stoch(job["argv"], mesh).numpy()}
+            else:
+                res = loop_pos(job["argv"], mesh, out)
+                got = {"data_pos": res.data_pos, "data_mom": res.data_mom,
+                       "n_restarts": res.n_restarts}
+            np.savez(out / f"{job['name']}.rank{mesh.rank}.npz", **got)
+            continue
         cli = cli_loop if job["mode"] == "loop" else cli_eig
         err, same, hop_err, op_dtype, mesh = op_check(cli, job["argv"])
         if job["mode"] == "loop":
@@ -122,6 +217,10 @@ def main():
                 cli.run(job["argv"]) if job["mode"] == "eig"
                 else arnoldi(job["argv"], mesh))
             data_mom, shape = np.zeros(0), tuple(res.evecs.shape)
+        extra = {}
+        if job["name"] == "pc":
+            same, keys = evec_roundtrip(out, job["name"], res, evals, mesh)
+            extra = {"evec_roundtrip": same, "evec_keys": keys}
         np.savez(out / f"{job['name']}.rank{mesh.rank}.npz",
                  evals=np.asarray(evals), sigma=np.asarray(sigma),
                  resids=np.asarray(resids), data_mom=data_mom,
@@ -129,7 +228,7 @@ def main():
                  op_err=err, overlap_same=same, hop_err=hop_err,
                  op_dtype=op_dtype,
                  evec_shape=np.asarray(shape),
-                 local_dims=np.asarray(mesh.local_dims))
+                 local_dims=np.asarray(mesh.local_dims), **extra)
     shutdown_distributed()
 
 
