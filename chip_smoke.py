@@ -58,6 +58,17 @@ Phases (each prints its own lines and raises on failure):
   mg-flagship  the MG-deflated 32^3x64 loop through the CLI (the settings
             of scripts/time_mg32.py plus one displacement), held to the
             coarse eigenvalues the JAX package recorded;
+  mg-mesh   the same invocation over --mesh 2 1 (two gloo ranks sharing
+            the card: null vectors smoothed on K7a, Galerkin probes on K5
+            across the rank edge (first held, every (mu, sign) on each
+            rank's block, to K5's twin on the global field at
+            TOL['dslash_hop_dir'], eight K5 launches and no other), the
+            coarse operator gathered and eigensolved on both ranks, the
+            sharded measurement on K2 and K3), each rank held to
+            mg-flagship's checks and to its run (coarse evals 1e-4,
+            data_mom 1e-3 of max, the same restarts on both ranks), K7a,
+            K5, K2 and K3 launched, K1 not; each rank's wall, mg-* phases,
+            launches and halo bytes and host seconds;
   coarse-loop  the coarse-space ultra-local loop at 32^3x64 through the
             loop CLI's API path (no --production, --prec single, the MG
             flagship's lattice, gauge, kappa, eigensolver and hierarchy,
@@ -116,11 +127,13 @@ Phases (each prints its own lines and raises on failure):
             on a one-card machine, NCCL too where there are two cards),
             held to the single-device flagship; before the 2 1 loop the
             sharded bare hop of the flagship gauge, as in mesh-slice; then
-            the flagship with --link-precision bf16 --basis-precision bf16
-            on one device and over the same meshes (the bf16 Krylov basis
-            under --mesh: bf16 spinors through the exchange and K7a), each
-            rank held to the one-device run (evals 1e-3, residual < 0.1,
-            data_mom finite) and to the f32 flagship (evals 3e-2);
+            the flagship with --link-precision bf16 --basis-precision bf16,
+            capped at BF16_MESH_RESTARTS restarts, on one device and over
+            the same meshes, in the f32 run's launch (the bf16 Krylov
+            basis under --mesh: bf16 spinors through the exchange and
+            K7a), each rank held to the
+            one-device run (evals 1e-3, residual < 0.1, data_mom finite)
+            and to the f32 flagship (evals 3e-2);
   api-slice  the API path (the CLIs without --production, complex
             fields, plain PyTorch: no TPU kernel is on it) at 8^3x16 on
             the card against the same runs on the CPU (in this process,
@@ -359,8 +372,13 @@ PC_SLICE_BF16_ARGS = PC_SLICE_ARGS + [
     "--eig-max-restarts", "40"]
 
 # the bf16 Krylov basis under --mesh (mesh-flagship): bf16 links and a
-# bf16 basis, the JAX time_production32 recipe's precisions
-BF16_MESH_FLAGS = ["--link-precision", "bf16", "--basis-precision", "bf16"]
+# bf16 basis, the JAX time_production32 recipe's precisions.  Its runs (one
+# device, --mesh 1 1 and 2 1) stop at BF16_MESH_RESTARTS of the flagship's 30:
+# a bf16 basis floors near bf16 eps (residual ~1e-2), so every such run
+# goes to its cap, and the one-device reference stops at the same one
+BF16_MESH_RESTARTS = 10
+BF16_MESH_FLAGS = ["--link-precision", "bf16", "--basis-precision", "bf16",
+                   "--eig-max-restarts", str(BF16_MESH_RESTARTS)]
 
 # the Arnoldi of M at the slice (no CLI path; arnoldi_run): unfiltered,
 # smallest modulus, nKr 48
@@ -1934,7 +1952,6 @@ def phase_mg_slice(dev):
 
 
 def phase_mg_flagship(counters):
-    import numpy as np
     from mugiq_tpu_torch.cli import loop as cli_loop
 
     tmp = tempfile.mkdtemp(prefix="mugiq_smoke_",
@@ -1951,30 +1968,112 @@ def phase_mg_flagship(counters):
                                             argv, counters)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    say(f"mg flagship: converged={res.converged} restarts={res.n_restarts}")
-    for i, (lam, r) in enumerate(zip(res.evals, res.resids)):
-        say(f"mg flagship: coarse eval[{i}] {lam:+.10e} resid {r:.3e}")
-    if not res.converged or not max(res.resids) <= MG_MAX_RESIDUAL:
-        raise AssertionError(f"mg flagship: converged={res.converged}, max "
-                             f"coarse residual {max(res.resids):.3e} (limit "
-                             f"{MG_MAX_RESIDUAL})")
-    rel = np.abs(res.evals[:4] - np.asarray(MG_COARSE_EVALS4)) \
-        / np.asarray(MG_COARSE_EVALS4)
-    say(f"mg flagship: four lowest coarse evals vs the JAX record: rel "
-        f"{' '.join(f'{x:.2e}' for x in rel)} (tol {MG_EVALS_RTOL:.0e})")
-    if not np.all(rel <= MG_EVALS_RTOL):
-        raise AssertionError("mg flagship coarse eigenvalues disagree with "
-                             "the JAX record")
-    if res.data_mom.shape != (2, 2, 16, 64) or not np.isfinite(
-            res.data_mom).all():
-        raise AssertionError(f"mg flagship data_mom: shape "
-                             f"{res.data_mom.shape} or not finite")
+    check_mg_flagship("mg flagship", res)
     for name in ("wilson_m", "loop_contract", "covariant_displace",
                  "dslash_hop_dir"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the mg "
                                  f"flagship run")
-    return launches
+    return res, launches
+
+
+def check_mg_flagship(name, res):
+    """An MG flagship run (evals, resids, converged, n_restarts, data_mom):
+    converged, coarse residuals <= MG_MAX_RESIDUAL, the four lowest coarse
+    eigenvalues within MG_EVALS_RTOL of the JAX record, data_mom finite of
+    the flagship's shape."""
+    import numpy as np
+    say(f"{name}: converged={bool(res.converged)} "
+        f"restarts={int(res.n_restarts)}")
+    for i, (lam, r) in enumerate(zip(res.evals, res.resids)):
+        say(f"{name}: coarse eval[{i}] {lam:+.10e} resid {r:.3e}")
+    if not res.converged or not max(res.resids) <= MG_MAX_RESIDUAL:
+        raise AssertionError(f"{name}: converged={bool(res.converged)}, max "
+                             f"coarse residual {max(res.resids):.3e} (limit "
+                             f"{MG_MAX_RESIDUAL})")
+    rel = np.abs(res.evals[:4] - np.asarray(MG_COARSE_EVALS4)) \
+        / np.asarray(MG_COARSE_EVALS4)
+    say(f"{name}: four lowest coarse evals vs the JAX record: rel "
+        f"{' '.join(f'{x:.2e}' for x in rel)} (tol {MG_EVALS_RTOL:.0e})")
+    if not np.all(rel <= MG_EVALS_RTOL):
+        raise AssertionError(f"{name}: coarse eigenvalues disagree with the "
+                             f"JAX record")
+    if res.data_mom.shape != (2, 2, 16, 64) or not np.isfinite(
+            res.data_mom).all():
+        raise AssertionError(f"{name} data_mom: shape {res.data_mom.shape} "
+                             f"or not finite")
+
+
+class _Ranked:
+    """A rank's saved results with the attributes of a ProductionResult."""
+
+    def __init__(self, d):
+        self.evals, self.resids = d["evals"], d["resids"]
+        self.data_mom = d["data_mom"]
+        self.converged = bool(d["converged"])
+        self.n_restarts = int(d["n_restarts"])
+
+
+def phase_mg_mesh(mg_flagship, counters):
+    """The MG flagship over --mesh 2 1 (two gloo ranks sharing the card):
+    the null vectors smoothed on K7a, the Galerkin probed with K5 across
+    the rank edge, the coarse operator gathered and eigensolved on both
+    ranks, the sharded measurement (K2, K3).  Before the loop, in the same
+    launch, the Galerkin's hops (block_hops: K5 on each rank's block,
+    extended along t) held to K5's twin on the global field.  Every rank
+    passes the MG flagship's checks and is held to the one-device run:
+    coarse eigenvalues 1e-4 relative, data_mom 1e-3 of max, the same
+    restarts on both ranks; K7a, K5, K2 and K3 launched, K1 not.  Returns
+    the hops' largest abs error."""
+    import numpy as np
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="mugiq_smoke_", dir=here)
+    try:
+        mom = os.path.join(tmp, "moms.txt")
+        with open(mom, "w") as f:
+            f.write(MG_FLAGSHIP_MOMENTA)
+        argv = with_flagship_gauge(MG_FLAGSHIP_ARGS) + ["--momenta-filename",
+                                                         mom]
+        res = run_mesh("mg mesh --mesh 2 1 (gloo)", "2 1",
+                       [("block-hops", "block-hops", argv),
+                        ("loop", "loop", argv)], "gloo", timeout=900)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    hop_err = check_block_hops("mg mesh 2 1 Galerkin hops", res["block-hops"])
+    got = res["loop"]
+    ref = mg_flagship
+    for r, d in enumerate(got):
+        name = f"mg mesh 2 1 rank {r}"
+        check_mg_flagship(name, _Ranked(d))
+        ev = float(np.max(np.abs(d["evals"] - ref.evals) / ref.evals))
+        dm = float(np.max(np.abs(d["data_mom"] - ref.data_mom))
+                   / np.max(np.abs(ref.data_mom)))
+        lk, h = d["launches"], d["halo"]
+        mg = {k: v for k, v in d["phases"].items()
+              if k.startswith("mg-") or k in ("eigensolve", "solution",
+                                               "operator-setup")}
+        say(f"{name}/{int(d['world'])}: wall {float(d['wall']):.2f} s, "
+            f"phases {json.dumps(mg)}, restarts {int(d['n_restarts'])} "
+            f"(rank 0 {int(got[0]['n_restarts'])}, one device "
+            f"{ref.n_restarts}), coarse evals rel {ev:.2e} of the one-device "
+            f"run (tol 1e-4), data_mom rel {dm:.2e} (tol 1e-3); launches "
+            f"K7a {lk['wilson_m_halo']}, K5 {lk['dslash_hop_dir']}, K2 "
+            f"{lk['loop_contract']}, K3 {lk['covariant_displace']}, K1 "
+            f"{lk['wilson_m']}; halo {h['bytes'] / 1e9:.3f} GB sent in "
+            f"{h['exchanges']} exchanges, {h['seconds']:.2f} s host time in "
+            f"the exchange calls")
+        if not (ev <= 1e-4 and dm <= 1e-3
+                and int(d["n_restarts"]) == int(got[0]["n_restarts"])):
+            raise AssertionError(f"{name} disagrees with the one-device MG "
+                                 f"flagship or with rank 0")
+        for k in ("wilson_m_halo", "dslash_hop_dir", "loop_contract",
+                  "covariant_displace"):
+            if lk[k] <= 0:
+                raise AssertionError(f"{name}: {k} not launched")
+        if lk["wilson_m"]:
+            raise AssertionError(f"{name}: launched K1")
+    return hop_err
 
 
 def fine_loop_ulocal(env, evecs, weights, geom, momenta, ft_sign=-1):
@@ -2820,8 +2919,10 @@ def mesh_worker(out, spec):
 
     counters = kernel_counters()
     for job in json.loads(Path(spec).read_text()):
-        if job["mode"] == "hop":
-            res = sharded_hop_check(job["argv"], counters)  # starts the group
+        if job["mode"] in ("hop", "block-hops"):
+            check = (sharded_hop_check if job["mode"] == "hop"
+                     else block_hops_check)
+            res = check(job["argv"], counters)  # starts the group
             np.savez(Path(out) / f"{job['name']}.rank{dist.get_rank()}.npz",
                      **res)
             continue
@@ -2901,6 +3002,88 @@ def sharded_hop_check(argv, counters):
     torch.cuda.empty_cache()
     return {"errs": errs, "ties": ties, "launches": json.dumps(launches),
             "world": mesh.world}
+
+
+def block_hops_check(argv, counters):
+    """One rank of the MG Galerkin's hops (kernel_mg.block_hops: K5 on the
+    rank's block, and along a partitioned axis on the probe and links
+    extended one slice a side, the interior kept), as MGEnvRC.build calls
+    them under the mesh: the sharded operator's block links upcast to
+    f32, a seeded f32 probe's block, every (mu, sign), with every launch
+    counter zeroed just before and read just after; each hop held to K5's
+    plain twin on the global field, the rank's block of it (errs: rel to
+    its max; abs: max abs)."""
+    import torch
+    from mugiq_tpu_torch.cli import loop as cli_loop
+    from mugiq_tpu_torch.cli.common import build_mesh, build_params
+    from mugiq_tpu_torch.io.gauge_io import load_gauge_np
+    from mugiq_tpu_torch.kernels.hop_dir import dslash_hop_dir_plain
+    from mugiq_tpu_torch.lattice import LatticeGeometry
+    from mugiq_tpu_torch.mg.kernel_mg import block_hops
+    from mugiq_tpu_torch.parallel.shard_op import ShardedWilsonKernel
+    from mugiq_tpu_torch.production import build_kernel_dirac
+
+    args = cli_loop.parse_args(argv)
+    gp, ip, _ = build_params(args)
+    mesh, dev = build_mesh(args, gp.dims)
+    U = load_gauge_np(args.gauge, LatticeGeometry(gp.dims),
+                      seed=args.gauge_seed)
+    single = build_kernel_dirac(U, gp, ip, precision=args.link_precision,
+                                device=dev)
+    op = ShardedWilsonKernel.from_kernel_op(mesh, single)
+    g = torch.Generator(device=dev).manual_seed(7)
+    psi = torch.randn(single.field_shape, generator=g, device=dev)
+    p = mesh.local_block(psi)
+    zero_counts(counters)
+    hops = block_hops(mesh, op.halo, op.block_links().float())
+    got = [hops(p, mu) for mu in range(4)]
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    launches = read_counts(counters)
+    del hops, op
+    U32 = single.U_k.float()
+    errs, abs_errs = [], []
+    for mu in range(4):
+        for h, sign in zip(got[mu], (1, -1)):
+            want = mesh.local_block(dslash_hop_dir_plain(psi, U32, mu, sign,
+                                                         False, single.Y))
+            if h.shape != want.shape:
+                raise AssertionError(f"block hops: out {tuple(h.shape)}, "
+                                     f"the block {tuple(want.shape)}")
+            err = float((h - want).abs().max())
+            abs_errs.append(err)
+            errs.append(err / float(want.abs().max()))
+            del want
+    del got, single, U32
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"errs": errs, "abs": abs_errs, "launches": json.dumps(launches),
+            "world": mesh.world, "block": list(p.shape)}
+
+
+def check_block_hops(name, ranks):
+    """Every rank's MG Galerkin hops (block_hops_check), the eight (mu,
+    sign), within TOL['dslash_hop_dir'] of K5's plain twin on the global
+    field, eight K5 launches and no other; returns the largest abs
+    error."""
+    for r, d in enumerate(ranks):
+        errs = [float(e) for e in d["errs"]]
+        lk = d["launches"]
+        say(f"{name} rank {r}/{int(d['world'])}: K5 on the block "
+            f"{[int(v) for v in d['block']]} (+/-x..+/-t) rel "
+            f"{' '.join(f'{e:.2e}' for e in errs)} vs its twin on the "
+            f"global field (tol {TOL['dslash_hop_dir']:.0e}), max abs "
+            f"{max(float(e) for e in d['abs']):.2e}; launches K5 "
+            f"{lk['dslash_hop_dir']}, others "
+            f"{sum(v for k, v in lk.items() if k != 'dslash_hop_dir')}")
+        if max(errs) > TOL["dslash_hop_dir"]:
+            raise AssertionError(f"{name} rank {r}: the Galerkin's hops "
+                                 f"disagree with K5's twin")
+        if lk["dslash_hop_dir"] != 8 or any(
+                v for k, v in lk.items() if k != "dslash_hop_dir"):
+            raise AssertionError(f"{name} rank {r}: launches {lk}")
+    return max(float(e) for d in ranks for e in d["abs"])
 
 
 def check_sharded_hop(name, ranks):
@@ -3137,27 +3320,27 @@ def phase_mesh_flagship(flagship, counters):
     """The 32^3x64 loop flagship through the CLI over --mesh 1 1 (one rank,
     NCCL) and --mesh 2 1 (two ranks: gloo on a one-card machine; NCCL too
     where there are two cards), held to the single-device flagship, each
-    2 1 launch preceded by the sharded bare hop of its ranks; then with
-    bf16 links and a bf16 basis over the same meshes, held to that
-    configuration on one device (evals 1e-3, residuals < 0.1) and to the
-    f32 flagship (evals 3e-2).  Returns K7a's launches of the one-rank f32
-    run, its bf16-spinor launches of the one-rank bf16 run, and K4-halo's
-    (all, bf16-spinor) on rank 0 of the 2 1 gloo bare hop."""
+    2 1 launch preceded by the sharded bare hop of its ranks; then, in the
+    same launch, with bf16 links and a bf16 basis, BF16_MESH_RESTARTS
+    restarts, held to that configuration on one device (evals 1e-3,
+    residuals < 0.1) and to the f32 flagship (evals 3e-2).  Returns K7a's
+    launches of the one-rank f32 run, its bf16-spinor launches of the
+    one-rank bf16 run, and K4-halo's (all, bf16-spinor) on rank 0 of the
+    2 1 gloo bare hop."""
     import numpy as np
     import torch
 
     ref = (flagship.evals, flagship.data_mom, flagship.n_restarts)
     here = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="mugiq_smoke_", dir=here)
-    runs = [("1 1", "nccl")]
+    meshes = [("1 1", "nccl")]
     if torch.cuda.device_count() >= 2:
-        runs.append(("2 1", "nccl"))
+        meshes.append(("2 1", "nccl"))
     else:
         say(f"mesh flagship: NCCL between separate cards not exercised "
             f"({torch.cuda.device_count()} card); two ranks share the card "
             f"over gloo")
-    runs.append(("2 1", "gloo"))
-    runs += [(mesh, backend, "bf16") for mesh, backend in runs]
+    meshes.append(("2 1", "gloo"))
     launches = bf16_launches = hop_launches = None
     try:
         mom = os.path.join(tmp, "moms.txt")
@@ -3170,54 +3353,58 @@ def phase_mesh_flagship(flagship, counters):
             "bf16 links + bf16 basis flagship, one device", BF16_MESH_FLAGS,
             counters, flagship, 3e-2, 0.1)[0]
         ref_bf16 = (ref_bf16.evals, ref_bf16.data_mom, ref_bf16.n_restarts)
-        for mesh, backend, *bf16 in runs:
-            name = (f"mesh flagship --mesh {mesh} ({backend})"
-                    + (" bf16 links + bf16 basis" if bf16 else ""))
-            jobs = [("loop", "loop", bf16_argv if bf16 else argv)]
-            if mesh == "2 1" and not bf16:
+        for mesh, backend in meshes:
+            name = f"mesh flagship --mesh {mesh} ({backend})"
+            # one launch a mesh: the f32 and the bf16 loop run in the same
+            # ranks, one after the other
+            jobs = [("loop", "loop", argv), ("loop-bf16", "loop", bf16_argv)]
+            if mesh == "2 1":
                 jobs.insert(0, ("hop", "hop", argv))
             res = run_mesh(name, mesh, jobs, backend, timeout=1200)
-            if mesh == "2 1" and not bf16:
-                n = check_sharded_hop(f"mesh flagship bare hop {mesh} "
-                                      f"({backend})", res["hop"])
+            if mesh == "2 1":
+                n = check_sharded_hop(f"{name} bare hop", res["hop"])
                 if backend == "gloo":
                     hop_launches = n
-            got = res["loop"]
-            if bf16:
-                check_ranks(name, got, ref_bf16, None,
-                            ("wilson_m_halo", "wilson_m_halo.bf16",
-                             "loop_contract", "covariant_displace"),
-                            ("wilson_m",), bf16_basis=True)
-                for r, d in enumerate(got):
-                    ev = match_rel(d["evals"], flagship.evals)
-                    say(f"{name} rank {r}: evals rel {ev:.2e} of the f32 "
-                        f"flagship's (tol 3e-2)")
-                    if ev > 3e-2:
-                        raise AssertionError(f"{name} rank {r}: evals off "
-                                             f"the f32 flagship's")
-            else:
-                check_ranks(name, got, ref, 1e-3,
-                            ("wilson_m_halo", "loop_contract",
-                             "covariant_displace"), ("wilson_m",))
-            for r, d in enumerate(got):
-                k7a = d["launches"]["wilson_m_halo"]
-                apps = k7a // 2          # interior + boundary per application
-                h = d["halo"]
-                say(f"{name} rank {r}/{int(d['world'])}: backend "
-                    f"{d['backend']}, wall {float(d['wall']):.2f} s, phases "
-                    f"{json.dumps(d['phases'])}, restarts "
-                    f"{int(d['n_restarts'])}, K7a launches {k7a} "
-                    f"({d['launches']['wilson_m_halo.bf16']} bf16 spinors; "
-                    f"{apps} applications), halo {h['bytes'] / 1e9:.3f} GB "
-                    f"sent in {h['exchanges']} exchanges "
-                    f"({h['bytes'] / max(apps, 1) / 1e6:.3f} MB per "
-                    f"application), {h['seconds']:.2f} s host time in the "
-                    f"exchange calls")
-            if mesh == "1 1":
+            for job, bf16 in (("loop", False), ("loop-bf16", True)):
+                got = res[job]
+                run = name + (" bf16 links + bf16 basis" if bf16 else "")
                 if bf16:
-                    bf16_launches = got[0]["launches"]["wilson_m_halo.bf16"]
+                    check_ranks(run, got, ref_bf16, None,
+                                ("wilson_m_halo", "wilson_m_halo.bf16",
+                                 "loop_contract", "covariant_displace"),
+                                ("wilson_m",), bf16_basis=True)
+                    for r, d in enumerate(got):
+                        ev = match_rel(d["evals"], flagship.evals)
+                        say(f"{run} rank {r}: evals rel {ev:.2e} of the f32 "
+                            f"flagship's (tol 3e-2)")
+                        if ev > 3e-2:
+                            raise AssertionError(f"{run} rank {r}: evals off "
+                                                 f"the f32 flagship's")
                 else:
-                    launches = got[0]["launches"]["wilson_m_halo"]
+                    check_ranks(run, got, ref, 1e-3,
+                                ("wilson_m_halo", "loop_contract",
+                                 "covariant_displace"), ("wilson_m",))
+                for r, d in enumerate(got):
+                    k7a = d["launches"]["wilson_m_halo"]
+                    apps = k7a // 2      # interior + boundary per application
+                    h = d["halo"]
+                    say(f"{run} rank {r}/{int(d['world'])}: backend "
+                        f"{d['backend']}, wall {float(d['wall']):.2f} s, "
+                        f"phases {json.dumps(d['phases'])}, restarts "
+                        f"{int(d['n_restarts'])}, K7a launches {k7a} "
+                        f"({d['launches']['wilson_m_halo.bf16']} bf16 "
+                        f"spinors; {apps} applications), halo "
+                        f"{h['bytes'] / 1e9:.3f} GB sent in "
+                        f"{h['exchanges']} exchanges "
+                        f"({h['bytes'] / max(apps, 1) / 1e6:.3f} MB per "
+                        f"application), {h['seconds']:.2f} s host time in "
+                        f"the exchange calls")
+                if mesh == "1 1":
+                    if bf16:
+                        bf16_launches = \
+                            got[0]["launches"]["wilson_m_halo.bf16"]
+                    else:
+                        launches = got[0]["launches"]["wilson_m_halo"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches, bf16_launches, hop_launches
@@ -3256,7 +3443,8 @@ def kernel_counters():
 PHASES = ("build", "kernels", "parity", "bf16", "identity", "slice",
           "pc-slice", "bf16-restart", "bf16-slice", "block-slice",
           "arnoldi-slice", "flagship", "bf16-flagship", "block-flagship",
-          "pc-flagship", "hopdir", "mg-slice", "mg-flagship", "coarse-loop",
+          "pc-flagship", "hopdir", "mg-slice", "mg-flagship", "mg-mesh",
+          "coarse-loop",
           "stoch-flagship", "hop", "halo", "mesh-slice", "mesh-flagship",
           "api-slice", "api-fp64")
 
@@ -3320,7 +3508,7 @@ def main(argv=None):
 
 def run_phases(phases, dev, counters, stats, launches):
     import torch
-    flagship = None
+    flagship = mg_flagship = None
     # main-path launches of K1's and K6's bf16-spinor and batched forms,
     # and of K1 and K2 in the stochastic trace
     form_launches = stats.setdefault("form_launches",
@@ -3404,8 +3592,18 @@ def run_phases(phases, dev, counters, stats, launches):
             form_launches["bf16_psi"].setdefault("dslash_hop_halo",
                                                  k4h_bf16)
         else:
-            launches["dslash_hop_dir"] = phase_mg_flagship(
-                counters)["dslash_hop_dir"]
+            if mg_flagship is None:
+                mg_flagship, got = phase_mg_flagship(counters)
+                # the kernels line takes K5's launches from the one-device
+                # MG flagship
+                launches["dslash_hop_dir"] = got["dslash_hop_dir"]
+            if phase == "mg-mesh":
+                err = phase_mg_mesh(mg_flagship, counters)
+                # K5's max_abs_err: the worst of hopdir's and of the
+                # Galerkin's hops at the mg-mesh block
+                if "dslash_hop_dir" in stats:
+                    k5 = stats["dslash_hop_dir"]
+                    k5["max_abs_err"] = max(k5["max_abs_err"], err)
         torch.cuda.empty_cache()
         say(f"phase {phase}: {time.perf_counter() - tp:.1f} s")
 

@@ -21,7 +21,9 @@ The production path:
         --link-precision bf16 --production
 
 --mesh NT NZ [NY] runs the sharded loop, one process per rank (NCCL with
-a card per rank; gloo on the CPU or when ranks share a card):
+a card per rank; gloo on the CPU or when ranks share a card), with or
+without --mugiq-use-mg yes (the MG blocks must then divide each rank's
+block along the partitioned axes):
 
     python -m torch.distributed.run --standalone --nproc-per-node 2 \
         -m mugiq_tpu_torch.cli.loop --dims 8 8 8 16 ... --production \
@@ -53,8 +55,7 @@ drive JAX-only machinery and are logged with no other effect.
 --mugiq-compute-coarse yes) assembles the coarse-space ultra-local loop
 and logs its shape and |L|_max, as the JAX CLI does; with --production it
 is logged and ignored.  Values that need unported work raise
-NotImplementedError naming their ROADMAP item: --serve (item 13),
---mugiq-use-mg yes with --mesh (item 15).
+NotImplementedError naming their ROADMAP item: --serve (item 13).
 """
 
 import argparse
@@ -158,8 +159,6 @@ def run(argv=None):
 
     gp, ip, ep = build_params(args)
     use_mg = args.mugiq_use_mg == "yes"
-    if use_mg and args.mesh is not None:
-        not_ported("--mugiq-use-mg yes with --mesh", "item 15")
     mesh, device = build_mesh(args, gp.dims)
     quiet_unless_primary(mesh)
     mg = build_mg_param(args) if use_mg else None

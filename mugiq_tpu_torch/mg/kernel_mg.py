@@ -180,7 +180,7 @@ class TransferKernelMG:
 
 
 def galerkin_kernel(U_k, kappa: float, transfer: TransferKernelMG,
-                    A144=None) -> StencilOperatorRC:
+                    A144=None, hops=None) -> StencilOperatorRC:
     """Exact R A P of the fine Wilson(-clover) operator A - kappa D on the
     kernel layout: probes are the basis columns masked to one coarse spin,
     each hop term one K5 launch per (probe, mu, sign) scaled by -kappa and
@@ -189,13 +189,19 @@ def galerkin_kernel(U_k, kappa: float, transfer: TransferKernelMG,
     Wilson), as the agg formulation does.
 
     U_k [T, 4, 18, Z, Y*X] phased links (f32: upcast bf16 links first);
-    A144 [T, 144, Z, Y*X] clover chiral blocks or None.  The output layout
-    is galerkin_coarse_operator_rc's (flat coarse index i = sc*n_vec + w,
-    columns the probes (s, u))."""
+    A144 [T, 144, Z, Y*X] clover chiral blocks or None.  hops(p, mu) ->
+    (forward, backward) hop of the probe p along mu, unscaled: by default
+    K5 on the field as it stands (periodic), block_hops on a rank's block.
+    The output layout is galerkin_coarse_operator_rc's (flat coarse index
+    i = sc*n_vec + w, columns the probes (s, u))."""
     g, Y, V = transfer.geom, transfer.Y, transfer.V
     n_vec = transfer.n_vec
     dev = V.device
     mk = -float(kappa)
+    if hops is None:
+        def hops(p, mu):
+            return [dslash_hop_dir(p, U_k, mu, sign, False, Y)
+                    for sign in (1, -1)]
 
     def cols(cs):
         """u list of [Tc,Zc,Yc,Xc,sc,w,2] -> [Tc,Zc,Yc,Xc, n(rows), u, 2]."""
@@ -209,18 +215,60 @@ def galerkin_kernel(U_k, kappa: float, transfer: TransferKernelMG,
                                   clover_apply_plain(A144, V[u] * scm))
                 for u in range(n_vec)]
         for mu in range(4):
-            for sign, stencil in ((+1, Yp_b), (-1, Ym_b)):
-                em = _edge_mask(g, Y, mu, sign, dev)
-                ycol = []
-                for u in range(n_vec):
-                    h = dslash_hop_dir(V[u] * scm, U_k, mu, sign, False, Y)
+            ems = [_edge_mask(g, Y, mu, sign, dev) for sign in (1, -1)]
+            ycols = ([], [])
+            for u in range(n_vec):
+                for h, em, ycol in zip(hops(V[u] * scm, mu), ems, ycols):
                     h *= mk
                     ycol.append(transfer.restrict(h * em))
                     dcol[u] = dcol[u] + transfer.restrict(h * (1.0 - em))
-                stencil[mu].append(cols(ycol))
+            Yp_b[mu].append(cols(ycols[0]))
+            Ym_b[mu].append(cols(ycols[1]))
         D_b.append(cols(dcol))
     return StencilOperatorRC(
         D=torch.cat(D_b, -2),
         Yp=[torch.cat(Yp_b[mu], -2) for mu in range(4)],
         Ym=[torch.cat(Ym_b[mu], -2) for mu in range(4)],
         ns=2, nc=n_vec)
+
+
+def block_hops(mesh, halo, U_loc):
+    """galerkin_kernel's hops on one rank's block (links U_loc [Tl, 4, 18,
+    Zl, Yl*X], f32): K5 on the block along a direction the mesh does not
+    partition; along one it does, K5 on the probe extended by one slice a
+    side (shard_dslash.extend_along, one exchange a probe and axis) with
+    the links extended alike (once, here), and the interior kept: K5's
+    periodic wrap then touches halo rows only."""
+    from ..parallel.shard_dslash import extend_along, partitioned_dirs
+
+    Yl = mesh.local["y"]
+    split = partitioned_dirs(mesh)
+    U_ext = {mu: extend_along(halo, U_loc, a, du, w)
+             for mu, (a, du, _, w) in split.items()}
+
+    def hops(p, mu):
+        if mu not in split:
+            return [dslash_hop_dir(p, U_loc, mu, sign, False, Yl)
+                    for sign in (1, -1)]
+        a, _, d, w = split[mu]
+        ext = extend_along(halo, p, a, d, w)
+        Ye = Yl + 2 if a == "y" else Yl
+        return [dslash_hop_dir(ext, U_ext[mu], mu, sign, False, Ye)
+                .narrow(d, w, p.shape[d]).contiguous() for sign in (1, -1)]
+
+    return hops
+
+
+def check_blocks_divide(mesh, block) -> None:
+    """Under a mesh every fine MG block must lie inside one rank's block
+    (the block Gram-Schmidt and the restriction are then rank-local): each
+    extent of `block` (bx, by, bz, bt) must divide the local extent along
+    a partitioned axis."""
+    X, Yl, Zl, Tl = mesh.local_dims
+    for axis, n, b in (("y", Yl, block[1]), ("z", Zl, block[2]),
+                       ("t", Tl, block[3])):
+        if mesh.shape[axis] > 1 and n % b:
+            raise ValueError(
+                f"the MG block {tuple(block)} straddles the ranks: along "
+                f"the mesh axis {axis} the local extent {n} is not a "
+                f"multiple of the block's {b}")

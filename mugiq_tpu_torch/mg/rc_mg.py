@@ -12,7 +12,7 @@ kernel_mg at every volume (the JAX package's host/split/agg fine-level
 setups are TPU workarounds).
 """
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import List
 
 import numpy as np
@@ -244,59 +244,88 @@ def galerkin_coarse_operator_rc(fine_op: StencilOperatorRC,
 # the hierarchy
 # ---------------------------------------------------------------------------
 
-def _cg_realpair(matvec, b, iters: int):
+def _cg_realpair(matvec, b, iters: int, reduce=None):
     """Fixed-iteration CG for a Hermitian positive operator on real-pair
-    fields (all CG scalars are real, so plain real dots suffice)."""
+    fields (all CG scalars are real, so plain real dots suffice).
+    reduce: the sum over ranks of a dot's local parts (sharded fields)."""
+    red = reduce or (lambda v: v)
+
+    def dot(a, c):
+        return red(torch.sum(a * c))
+
     x = torch.zeros_like(b)
     r = b.clone()
     p = b.clone()
-    rs = torch.sum(r * r)
+    rs = dot(r, r)
     for _ in range(iters):
         ap = matvec(p)
-        alpha = rs / torch.sum(p * ap)
+        alpha = rs / dot(p, ap)
         x = x + alpha * p
         r = r - alpha * ap
-        rs_new = torch.sum(r * r)
+        rs_new = dot(r, r)
         p = r + (rs_new / rs) * p
         rs = rs_new
     return x
 
 
-def _null_vectors_fine(fine_op, params: MGParam):
+def _null_vectors_fine(fine_op, params: MGParam, mesh=None):
     """Level-0 null vectors on the kernel layout [n_vec, T, 24, Z, Y*X]:
     numpy normals drawn on the host as the JAX package draws them
     (default_rng(setup_seed).standard_normal((n_vec, T, 24, Z, Y*X)), one
     vector at a time: the same stream), each smoothed by setup_iters CG
-    iterations of MdagM and normalised."""
-    T, _, Z, YX = fine_op.field_shape
+    iterations of MdagM and normalised.  mesh: fine_op is the rank's
+    sharded operator; each vector is drawn whole, as on one device, and
+    the rank keeps its block; the CG dots and the norm sum over the
+    ranks.  Returns the rank's blocks."""
     n = params.n_vec[0]
-    dev = fine_op.U_k.device
+    if mesh is None:
+        T, _, Z, YX = fine_op.field_shape
+        dev, reduce = fine_op.U_k.device, None
+    else:
+        T, Z, YX = (mesh.global_ext["t"], mesh.global_ext["z"],
+                    mesh.global_ext["y"] * mesh.X)
+        dev, reduce = mesh.device, mesh.all_reduce
+    red = reduce or (lambda v: v)
     rng = np.random.default_rng(params.setup_seed)
-    B = torch.empty((n, T, 24, Z, YX), dtype=torch.float32, device=dev)
+    B = torch.empty((n,) + tuple(fine_op.field_shape), dtype=torch.float32,
+                    device=dev)
     for i in range(n):
         with phase_timer("mg-null-vector-draw-l0"):
-            b = torch.from_numpy(rng.standard_normal((T, 24, Z, YX)).astype(
-                np.float32)).to(dev)
-        x = _cg_realpair(fine_op.MdagM, b, params.setup_iters)
-        B[i] = x / torch.linalg.vector_norm(x)
+            b = rng.standard_normal((T, 24, Z, YX)).astype(np.float32)
+            if mesh is not None:
+                b = np.ascontiguousarray(mesh.local_block(b))
+            b = torch.from_numpy(b).to(dev)
+        x = _cg_realpair(fine_op.MdagM, b, params.setup_iters, reduce)
+        B[i] = x / torch.sqrt(red(torch.sum(x * x)))
     return B
 
 
 @dataclass
 class MGEnvRC:
-    """level_ops[0] is the fine kernel-layout operator (WilsonDiracKernel),
-    the rest StencilOperatorRC; transfers[0] is a TransferKernelMG, the
-    rest TransferRC."""
+    """level_ops[0] is the fine kernel-layout operator (WilsonDiracKernel,
+    or under a mesh the rank's ShardedWilsonKernel), the rest
+    StencilOperatorRC; transfers[0] is a TransferKernelMG, the rest
+    TransferRC.
+
+    mesh (a parallel.mesh.LatticeMesh): transfers[0] holds the rank's
+    block of the basis (its fine blocks: each lies inside the rank's
+    block) and every coarse level is global, the same on every rank (the
+    level-1 stencils gathered, the levels under them built replicated, as
+    the JAX package keeps them: coarse volumes are small)."""
     level_ops: List[object]
     transfers: List[object]
     params: MGParam
+    mesh: object = None
 
     @classmethod
-    def build(cls, fine_op, params: MGParam) -> "MGEnvRC":
-        """Null-vector smoothing (K1 at the fine level), transfer and
-        Galerkin coarse operator, level by level (MGEnvRC.build with
-        kernel_impl=True in the JAX package)."""
-        from .kernel_mg import TransferKernelMG, galerkin_kernel
+    def build(cls, fine_op, params: MGParam, mesh=None) -> "MGEnvRC":
+        """Null-vector smoothing (K1 at the fine level; K7a under a mesh),
+        transfer and Galerkin coarse operator (K5), level by level
+        (MGEnvRC.build with kernel_impl=True in the JAX package; its mesh
+        form shards the fine level alike).  mesh: the fine blocks must lie
+        inside the rank's block (kernel_mg.check_blocks_divide, which the
+        caller runs before it builds the sharded operator)."""
+        from .kernel_mg import TransferKernelMG, block_hops, galerkin_kernel
 
         if len(params.geo_block_size) < params.n_level - 1 or \
                 len(params.n_vec) < params.n_level - 1:
@@ -307,17 +336,25 @@ class MGEnvRC:
             block = params.geo_block_size[lev]
             if lev == 0:
                 with phase_timer("mg-rc-null-vectors-l0"):
-                    B = _null_vectors_fine(fine_op, params)
+                    B = _null_vectors_fine(fine_op, params, mesh)
                 with phase_timer("mg-kernel-transfer-l0"):
-                    tr = TransferKernelMG.build(B, block, fine_op.Y)
+                    tr = TransferKernelMG.build(
+                        B, block,
+                        fine_op.Y if mesh is None else mesh.local["y"])
                 del B
                 with phase_timer("mg-kernel-galerkin-l0"):
                     # the Galerkin runs on the f32 upcast of the stored
                     # links and clover blocks
-                    coarse = galerkin_kernel(
-                        fine_op.U_k.float(), fine_op.kappa, tr,
-                        None if fine_op.A144 is None
-                        else fine_op.A144.float())
+                    A = None if fine_op.A144 is None else fine_op.A144.float()
+                    U = (fine_op.U_k if mesh is None
+                         else fine_op.block_links()).float()
+                    hops = (None if mesh is None
+                            else block_hops(mesh, fine_op.halo, U))
+                    coarse = galerkin_kernel(U, fine_op.kappa, tr, A, hops)
+                    del U, hops
+                if mesh is not None:
+                    with phase_timer("mg-gather-l0"):
+                        coarse = _gather_stencils(coarse, mesh)
             else:
                 op = level_ops[-1]
                 rng = np.random.default_rng(params.setup_seed + lev)
@@ -339,15 +376,20 @@ class MGEnvRC:
                 f"{tr.geom.coarse_dims}, n={coarse.ns * coarse.nc}")
             transfers.append(tr)
             level_ops.append(coarse)
-        return cls(level_ops=level_ops, transfers=transfers, params=params)
+        return cls(level_ops=level_ops, transfers=transfers, params=params,
+                   mesh=mesh)
 
     @property
     def coarsest_op(self):
         return self.level_ops[-1]
 
     def prolongate(self, phi):
-        for tr in reversed(self.transfers):
-            phi = tr.prolong(phi)
+        """A coarsest-level field to the fine level (under a mesh, the
+        rank's block of it)."""
+        for i in reversed(range(len(self.transfers))):
+            if i == 0 and self.mesh is not None:
+                phi = self.mesh.local_coarse_block(phi)
+            phi = self.transfers[i].prolong(phi)
         return phi
 
     def prolongate_batch(self, phis):
@@ -357,15 +399,26 @@ class MGEnvRC:
     def save(self, path: str) -> None:
         """Transfer bases and Galerkin stencils in the JAX package's npz
         format (the kernel-layout basis in the agg layout): a load skips
-        the setup CG and the probing."""
+        the setup CG and the probing.  Under a mesh every rank gathers the
+        fine-level basis and the primary writes the global file one device
+        would write."""
+        mesh = self.mesh
         data = {"n_level": np.asarray(self.params.n_level)}
         for i, tr in enumerate(self.transfers):
             g = tr.geom
-            V = tr.to_agg_V() if hasattr(tr, "to_agg_V") else tr.V
+            if i == 0:
+                V = tr.to_agg_V()
+                if mesh is not None:
+                    V = mesh.gather_coarse(V)
+                    g = replace(g, fine_dims=mesh.dims)
+            else:
+                V = tr.V
             data[f"V{i}"] = V.cpu().numpy()
             data[f"geom{i}"] = np.asarray(
                 list(g.fine_dims) + list(g.block)
                 + [g.ns_fine, g.nc_fine, g.spin_block], dtype=np.int64)
+        if mesh is not None and not mesh.is_primary:
+            return
         for i, op in enumerate(self.level_ops[1:]):
             data[f"D{i}"] = op.D.cpu().numpy()
             for mu in range(4):
@@ -377,12 +430,13 @@ class MGEnvRC:
             f"({len(self.transfers)} transfer level(s))")
 
     @classmethod
-    def load(cls, path: str, fine_op, params: MGParam,
-             device="cuda") -> "MGEnvRC":
+    def load(cls, path: str, fine_op, params: MGParam, device="cuda",
+             mesh=None) -> "MGEnvRC":
         """Rebuild the hierarchy from a save() checkpoint of either package
         (no setup CG, no probing).  fine_op must be the operator the
-        hierarchy was built for."""
-        from .kernel_mg import TransferKernelMG
+        hierarchy was built for.  mesh: the global file of any mesh (or of
+        one device); the rank keeps its block of the fine-level basis."""
+        from .kernel_mg import TransferKernelMG, check_blocks_divide
 
         def t(a):
             return torch.from_numpy(np.asarray(a, np.float32)).to(device)
@@ -397,8 +451,17 @@ class MGEnvRC:
                                   ns_fine=int(gi[8]), nc_fine=int(gi[9]),
                                   spin_block=int(gi[10]))
                 if i == 0:
+                    V0 = z["V0"]
+                    if mesh is not None:
+                        if g.fine_dims != mesh.dims:
+                            raise ValueError(
+                                f"{path}: a hierarchy of the lattice "
+                                f"{g.fine_dims}, not {mesh.dims}")
+                        check_blocks_divide(mesh, g.block)
+                        V0 = mesh.local_coarse_block(V0)
+                        g = replace(g, fine_dims=mesh.local_dims)
                     transfers.append(TransferKernelMG.from_agg_V(
-                        t(z["V0"]), g, g.fine_dims[1]))
+                        t(V0), g, g.fine_dims[1]))
                 else:
                     transfers.append(TransferRC(geom=g, V=t(z[f"V{i}"])))
                 ns, nc = (int(v) for v in z[f"nsnc{i}"])
@@ -409,4 +472,14 @@ class MGEnvRC:
                     ns=ns, nc=nc))
         log(f"MGEnvRC: hierarchy loaded from {path} "
             f"({n_coarse} coarse level(s))")
-        return cls(level_ops=level_ops, transfers=transfers, params=params)
+        return cls(level_ops=level_ops, transfers=transfers, params=params,
+                   mesh=mesh)
+
+
+def _gather_stencils(op: StencilOperatorRC, mesh) -> StencilOperatorRC:
+    """The global coarse operator on every rank from each rank's block of
+    its stencils (one all-gather a tensor)."""
+    return StencilOperatorRC(D=mesh.gather_coarse(op.D),
+                             Yp=[mesh.gather_coarse(y) for y in op.Yp],
+                             Ym=[mesh.gather_coarse(y) for y in op.Ym],
+                             ns=op.ns, nc=op.nc)

@@ -185,6 +185,42 @@ class LatticeMesh:
             out[self._block(shape, lead, r)] = p
         return out.to(local.device)
 
+    # --- coarse layout -----------------------------------------------------
+    # An MG coarse array [Tc, Zc, Yc, Xc, ...] carries t, z and y on axes
+    # 0, 1 and 2; a rank's block is an equal slice of each, since every
+    # fine block lies inside one rank's block.
+
+    def _coarse_index(self, shape, rank: int, local: bool):
+        """Rank `rank`'s block of a coarse array whose leading extents are
+        `shape` (global, or the block's with local=True)."""
+        c = self.coords_of(rank)
+        idx = []
+        for i, a in enumerate(AXES):
+            n = shape[i] if local else shape[i] // self.shape[a]
+            idx.append(slice(c[a] * n, (c[a] + 1) * n))
+        return tuple(idx)
+
+    def local_coarse_block(self, a):
+        """This rank's block of a global coarse array (a view)."""
+        return a[self._coarse_index(a.shape, self.rank, False)]
+
+    def gather_coarse(self, local: torch.Tensor) -> torch.Tensor:
+        """The global coarse array from every rank's block, on every rank
+        (one all-gather; on local's device): gather_field's counterpart for
+        the coarse layout."""
+        if self._no_group():
+            return local
+        import torch.distributed as dist
+        c = self._comm_tensor(local).contiguous()
+        parts = [torch.empty_like(c) for _ in range(self.world)]
+        dist.all_gather(parts, c)
+        shape = tuple(local.shape[i] * self.shape[a]
+                      for i, a in enumerate(AXES)) + tuple(local.shape[3:])
+        out = torch.empty(shape, dtype=local.dtype, device=c.device)
+        for r, p in enumerate(parts):
+            out[self._coarse_index(local.shape, r, True)] = p
+        return out.to(local.device)
+
 
 def make_lattice_mesh(mesh_shape: Sequence[int], dims: Sequence[int],
                       device="cuda") -> LatticeMesh:

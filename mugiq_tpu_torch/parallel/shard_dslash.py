@@ -122,6 +122,17 @@ def extend_along(halo, a, axis: str, dim: int, width: int):
     return ext
 
 
+def partitioned_dirs(mesh, lead: int = 0):
+    """{mu: (mesh axis, its dim in a link field [Tl, 4, 18, Zl, Yl*X], its
+    dim in a spinor field [.., Tl, 24, Zl, Yl*X] with t on axis `lead`,
+    halo width)} for each lattice direction the mesh partitions: what a
+    one-direction stencil (K3, K5) extends by one slice a side, with
+    extend_along, to read across the rank edges."""
+    dirs = {1: ("y", 4, 3, mesh.X), 2: ("z", 3, 2, 1), 3: ("t", 0, 0, 1)}
+    return {mu: (a, du, dp + lead, w) for mu, (a, du, dp, w) in dirs.items()
+            if mesh.shape[a] > 1}
+
+
 def make_sharded_dslash(mesh, halo, ext, dagger: bool = False,
                         overlap: bool = True):
     """The rank's bare hop D psi (dagger: D^dag psi) over any (t, z[, y])

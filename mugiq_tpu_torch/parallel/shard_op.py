@@ -113,6 +113,19 @@ class ShardedWilsonKernel(_Sharded):
         apply_halo(self.halo, ext, psi, launch, m, self.X, self.overlap)
         return out
 
+    def block_links(self) -> torch.Tensor:
+        """The block's links [Tl, 4, 18, Zl, Yl*X] in their stored dtype:
+        the interior of U_ext (a copy where z or y is extended)."""
+        m = self.mesh
+        Tl, _, _, Zp, YXp = self.U_ext.shape
+        Zl = m.local["z"]
+        v = self.U_ext.view(Tl, 4, 18, Zp, YXp // self.X, self.X)
+        if m.z_ext:
+            v = v[:, :, :, 1:Zl + 1]
+        if m.y_ext:
+            v = v[:, :, :, :, 1:self.Yl + 1]
+        return v.reshape(Tl, 4, 18, Zl, self.Yl * self.X)
+
     @classmethod
     def from_kernel_op(cls, mesh, op, overlap: bool = True):
         """The rank's block of a single-device WilsonDiracKernel (its links

@@ -43,7 +43,7 @@ from .params import (DslashType, EigOperator, EigParam, GaugeParam,
                      parse_disp_str)
 from .phase import (map_gamma_g5_planar, momentum_project_production,
                     phase_matrix_planar)
-from .utils import log, not_ported, phase_timer, resolve_device
+from .utils import log, phase_timer, resolve_device
 
 
 def build_kernel_dirac(U_np: np.ndarray, gauge: GaugeParam, inv: InvertParam,
@@ -299,10 +299,9 @@ def compute_loop_production(U_np: np.ndarray, gauge: GaugeParam,
     _measure_production_sharded); data_mom is the global result on every
     rank and only the primary writes the momentum-space file; keep_pos
     returns the global data_pos on every rank, and the position-space
-    file is one per rank (<fname_pos_h5>.proc<rank>.h5)."""
-    if mesh is not None and use_mg:
-        not_ported("the MG-deflated loop under a mesh (the JAX package's "
-                    "sharded fine-level MG setup)", "item 15")
+    file is one per rank (<fname_pos_h5>.proc<rank>.h5).  With use_mg the
+    fine level of the hierarchy is sharded alike and the coarse eigensolve
+    runs on every rank (_compute_loop_production_mg)."""
     dev = resolve_device(device) if mesh is None else mesh.device
     if use_mg:
         if mg_setup not in ("auto", "kernel"):
@@ -315,7 +314,7 @@ def compute_loop_production(U_np: np.ndarray, gauge: GaugeParam,
                 "(the coarse-operator basis is small)")
         return _compute_loop_production_mg(U_np, gauge, inv, eig, loop_param,
                                            mg, U_loop_np, keep_pos, seed,
-                                           precision, dev)
+                                           precision, dev, mesh)
     geom = LatticeGeometry(gauge.dims)
     cp = LoopComputeParam.build(geom, loop_param)
     res, evals, sigma, rs = compute_evecs_production(
@@ -339,25 +338,41 @@ def compute_loop_production(U_np: np.ndarray, gauge: GaugeParam,
 
 def _compute_loop_production_mg(U_np, gauge, inv, eig, loop_param, mg,
                                 U_loop_np, keep_pos, seed, precision,
-                                device) -> ProductionResult:
+                                device, mesh=None) -> ProductionResult:
     """MG-deflated loops: the hierarchy (null vectors smoothed with K1,
     kernel-layout transfer, Galerkin stencils probed with K5), an unfiltered
     thick-restart Lanczos of the coarsest MdagM, the computeEvals tail on
     the coarse operator, prolongation of the coarse evecs to the fine
-    kernel layout, then the measurement of the non-MG path."""
+    kernel layout, then the measurement of the non-MG path.
+
+    mesh: the fine level on the rank's block (smoothing on the sharded
+    operator, K7a; the Galerkin probes across the rank edges, K5), the
+    coarse operator gathered to every rank and eigensolved there, each
+    rank the same (replicated, as the JAX package keeps it), the rank's
+    block of the prolongated evecs measured as the sharded non-MG loop."""
+    from .mg.kernel_mg import check_blocks_divide
+
     if mg is None:
         raise ValueError("use_mg requires MGParam")
+    if mesh is not None and mg.geo_block_size:
+        # before the sharded operator, whose links are exchanged
+        check_blocks_divide(mesh, mg.geo_block_size[0])
     geom = LatticeGeometry(gauge.dims)
     cp = LoopComputeParam.build(geom, loop_param)
     with phase_timer("operator-setup"):
-        fast_op = build_kernel_dirac(U_np, gauge, inv, precision=precision,
-                                     device=device)
+        if mesh is None:
+            fast_op = build_kernel_dirac(U_np, gauge, inv,
+                                         precision=precision, device=device)
+        else:
+            fast_op = build_sharded_operator(U_np, gauge, inv, mesh,
+                                             precision)
     log("MG setup on the device (kernel-layout transfer/Galerkin)")
     with phase_timer("mg-setup"):
         if mg.vec_infile:
-            env = MGEnvRC.load(mg.vec_infile, fast_op, mg, device=device)
+            env = MGEnvRC.load(mg.vec_infile, fast_op, mg, device=device,
+                               mesh=mesh)
         else:
-            env = MGEnvRC.build(fast_op, mg)
+            env = MGEnvRC.build(fast_op, mg, mesh=mesh)
             if mg.vec_outfile:
                 env.save(mg.vec_outfile)
     coarse = env.coarsest_op
@@ -376,6 +391,7 @@ def _compute_loop_production_mg(U_np, gauge, inv, eig, loop_param, mg,
             check_interval=eig.check_interval)
     log(f"production MG eigensolve: converged={res.converged} "
         f"restarts={res.n_restarts}")
+    _check_branch(res, mesh)
 
     scale = (0.25 / inv.kappa ** 2
              if inv.mass_normalization == MassNormalization.MASS else 1.0)
@@ -395,8 +411,12 @@ def _compute_loop_production_mg(U_np, gauge, inv, eig, loop_param, mg,
     del env, fast_op, coarse
     res.evecs = None
     U_meas = U_loop_np if U_loop_np is not None else np.asarray(U_np)
-    data_mom, pos_np = _measure_production_kernel(
-        geom, loop_param, cp, fine, sigma, U_meas, keep_pos)
+    if mesh is None:
+        data_mom, pos_np = _measure_production_kernel(
+            geom, loop_param, cp, fine, sigma, U_meas, keep_pos)
+    else:
+        data_mom, pos_np = _measure_production_sharded(
+            geom, loop_param, cp, fine, sigma, U_meas, mesh, keep_pos)
     return ProductionResult(
         evals=evals, sigma=sigma, resids=np.asarray(rs),
         data_mom=data_mom, data_pos=pos_np,
@@ -452,7 +472,7 @@ def _measure_production_sharded(geom, loop_param, cp, evecs_k, sigma,
     rank's sites on its block of the phases and sums the ranks' t rows;
     keep_pos returns the global position-space loops (gathered)."""
     from .parallel.halo import HaloExchange
-    from .parallel.shard_dslash import extend_along
+    from .parallel.shard_dslash import extend_along, partitioned_dirs
 
     dev = evecs_k.device
     Yl = mesh.local["y"]
@@ -461,11 +481,7 @@ def _measure_production_sharded(geom, loop_param, cp, evecs_k, sigma,
     U_loop_k = torch.from_numpy(np.ascontiguousarray(mesh.local_block(
         kernel_gauge_np(U_loop_np, False)))).to(dev)
     halo = HaloExchange(mesh)
-    # direction -> (mesh axis, its dim in a link field [Tl, 4, 18, Zl,
-    # Yl*X] and in the batch [n, Tl, 24, Zl, Yl*X], halo width)
-    split = {mu: v for mu, v in {1: ("y", 4, 4, mesh.X), 2: ("z", 3, 3, 1),
-                                 3: ("t", 0, 1, 1)}.items()
-             if mesh.shape[v[0]] > 1}
+    split = partitioned_dirs(mesh, lead=1)      # the batch [n, Tl, ...]
     U_ext = {mu: extend_along(halo, U_loop_k, a, du, w)
              for mu, (a, du, _, w) in split.items()}
 

@@ -110,9 +110,7 @@ DIMS = ["--dims", "4", "4", "4", "4", "--device", "cpu"]
 
 
 @pytest.mark.parametrize("cli, flags, item", [
-    ("loop", ["--serve", "requests"], "item 13"),
-    ("loop", ["--mugiq-use-mg", "yes", "--mesh", "1", "1", "--production"],
-     "item 15")])
+    ("loop", ["--serve", "requests"], "item 13")])
 def test_unported_values_name_their_item(cli, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         PORT[cli].run(DIMS + flags)

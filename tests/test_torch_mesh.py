@@ -41,16 +41,33 @@ rank), at (X, Y, Z, T) = (4, 4, 4, 8):
   no CLI reaches; every inner product reduced over the ranks), each rank
   against the port's single-device run: the same restarts, eigenvalues
   1e-6; block Lanczos also against the JAX pc eigenvalues.
+* The MG-deflated loop (--mugiq-use-mg yes; tests/test_torch_mg.py's
+  MG, EIG and MOMENTA: three levels, kappa 0.12, with +z:1) over 2 1 and
+  2 2 2, and its clover form (csw 1.1) over 2 2, each rank against the
+  port's single-device MG run of the same flags (eigenvalues 1e-5
+  relative, data_mom 1e-4 of max, the tolerances of test_torch_mg.py,
+  which holds that run to JAX; the same restarts on every rank); the
+  primary's --mg-vec-outfile against the single-device file: the
+  level-1 stencils every rank holds, gathered, within 2e-5 and the basis
+  V0, each rank's block of it too, within 2e-6 (test_torch_mg.py's
+  STENCIL_ATOL and transfer bound), the coarser level within 2e-5; and a
+  second 2 1 run that loads it (--mg-vec-infile) equal to the first bit
+  for bit.
 * In process: --mesh 1 1 on one rank without a process group equals the
-  single-device run exactly, and with a bf16 basis (both CLIs) matches
-  the single-device bf16 run in eigenvalues (1e-3); the errors (NCCL
-  with ranks sharing a card, odd local extents with direct-pc, --mesh
-  with MG, bad mesh shapes).
+  single-device run (rtol 1e-7), and with a bf16 basis (both CLIs)
+  matches the single-device bf16 run in eigenvalues (1e-3); the MG loop
+  over --mesh 1 1 built (K7a's twin rounds apart from K1's) and loaded
+  from the single-device hierarchy (exactly); the errors (NCCL with
+  ranks sharing a card, odd local extents with direct-pc, MG blocks that
+  straddle two ranks, bad mesh shapes).
 Slow: the same runs against the JAX production path itself
 (compute_loop_production / compute_evecs_production, interpret-mode
 Pallas; minutes), the bf16 loop against JAX compute_loop_production with
 bf16 links and a bf16 basis on a 2-device t mesh (the recipe of
-tests/test_flagship_recipes.py test_production_recipe_bf16_mesh).
+tests/test_flagship_recipes.py test_production_recipe_bf16_mesh), the
+Wilson MG runs against JAX compute_loop_production(use_mg=True) on a
+(t 4, z 2) mesh of the 8 virtual devices (JAX's bounds,
+tests/test_rc_mg.py:160-189).
 """
 
 import json
@@ -86,13 +103,30 @@ CLOVER = ["--dslash-type", "clover", "--csw", "1.1"]
 # the bf16 Krylov basis: tol 1e-3, as a bf16 basis reaches it
 BF16_BASIS = ["--basis-precision", "bf16", "--eig-tol", "1e-3",
               "--eig-max-restarts", "30"]
+# the MG-deflated loop: tests/test_torch_mg.py's MG, EIG and MOMENTA on
+# this file's gauge, with one displacement (K3 on the MG evecs across the
+# z edge of 2 2 and 2 2 2)
+MG_MOMENTA = [(0, 0, 0), (1, 0, 0)]
+MG_LOOP = ["--dims", *map(str, DIMS), "--gauge", "weak:0.5", "--gauge-seed",
+           "1", "--kappa", "0.12", "--eig-nev", "4", "--eig-nkr", "16",
+           "--eig-tol", "1e-6", "--eig-max-restarts", "200",
+           "--mugiq-use-mg", "yes", "--mg-levels", "3", "--mg-block-size",
+           "2", "2", "2", "2", "1", "1", "1", "2", "--mg-nvec", "4", "4",
+           "--mg-setup-iters", "6", "--loop-do-nonlocal", "yes",
+           "--displace-entry-string", "+z:1", "--production", "--device",
+           "cpu"]
+STENCIL_ATOL = 2e-5
+V0_ATOL = 2e-6
 # mesh -> jobs (name, mode); one torch.distributed.run per mesh
 LAUNCHES = {"2 1": [("loop", "loop"), ("pc", "eig"), ("block", "eig"),
                     ("arnoldi", "arnoldi"), ("loop-bf16", "loop"),
                     ("pc-bf16", "eig"), ("loop-pos", "loop-pos"),
-                    ("stoch", "stoch")],
-            "2 2": [("loop", "loop"), ("pc-clover", "eig")],
-            "2 2 2": [("loop", "loop"), ("pc", "eig")]}
+                    ("stoch", "stoch"), ("loop-mg", "loop-mg"),
+                    ("loop-mg-load", "loop-mg")],
+            "2 2": [("loop", "loop"), ("pc-clover", "eig"),
+                    ("loop-mg-clover", "loop-mg")],
+            "2 2 2": [("loop", "loop"), ("pc", "eig"),
+                      ("loop-mg", "loop-mg")]}
 # the f32 CLI runs, held to the single device bit for bit in their
 # restarts (the keep_pos loop and the stochastic trace have tests of their
 # own)
@@ -100,6 +134,9 @@ RUNS = [(m, name) for m, jobs in LAUNCHES.items() for name, mode in jobs
         if not name.endswith("-bf16") and mode in ("loop", "eig", "arnoldi")]
 BF16_RUNS = [(m, name) for m, jobs in LAUNCHES.items() for name, _ in jobs
              if name.endswith("-bf16")]
+# the MG jobs that build their hierarchy (each writes --mg-vec-outfile)
+MG_RUNS = [(m, name) for m, jobs in LAUNCHES.items() for name, mode in jobs
+           if mode == "loop-mg" and name != "loop-mg-load"]
 # the Arnoldi of M has no JAX reference at this size (a 6144^2 dense eig)
 JAX_RUNS = [r for r in RUNS if r[1] != "arnoldi"]
 # the unfiltered Arnoldi of M: its smallest-modulus eigenvalues
@@ -115,7 +152,9 @@ STOCH = ["--dims", *map(str, STOCH_DIMS), "--gauge", "weak:0.3",
 
 def _argv(name, mom):
     loop = LOOP + ["--momenta-filename", str(mom)]
+    mg = MG_LOOP + ["--momenta-filename", str(mom.parent / "moms_mg.txt")]
     return {"loop": loop, "pc": PC, "pc-clover": PC + CLOVER,
+            "loop-mg": mg, "loop-mg-load": mg, "loop-mg-clover": mg + CLOVER,
             "block": PC + ["--eig-block-size", "2"],
             "arnoldi": ARNOLDI,
             "loop-bf16": loop + BF16_BASIS + ["--link-precision", "bf16"],
@@ -127,6 +166,23 @@ def _evec_file(out):
     """Where the pc job of a launch writes its evecs (gathered to the
     primary under the mesh)."""
     return out / "evecs.h5"
+
+
+def _mg_file(out, name):
+    """Where an MG job writes its hierarchy (--mg-vec-outfile; the 2 1
+    launch's loop-mg-load reads the loop-mg file)."""
+    return out / f"{name.replace('-load', '')}.npz"
+
+
+def _extra_argv(out, name):
+    """A job's output flags: the pc job's evecs, the MG jobs' hierarchy."""
+    if name == "pc":
+        return ["--eig-vec-outfile", str(_evec_file(out))]
+    if name == "loop-mg-load":
+        return ["--mg-vec-infile", str(_mg_file(out, name))]
+    if name.startswith("loop-mg"):
+        return ["--mg-vec-outfile", str(_mg_file(out, name))]
+    return []
 
 
 def _gauge():
@@ -187,6 +243,19 @@ def _single_extra(mom, out):
     return {"loop-pos": (res, d / "pos"), "stoch": trace.numpy()}
 
 
+def _single_mg(mom, out):
+    """The port's single-device MG runs and their hierarchies: {name:
+    (result, the --mg-vec-outfile arrays)}."""
+    d = out / "single_mg"
+    d.mkdir()
+    refs = {}
+    for name in ("loop-mg", "loop-mg-clover"):
+        res = cli_loop.run(_argv(name, mom) + _extra_argv(d, name))
+        with np.load(_mg_file(d, name)) as z:
+            refs[name] = (res, dict(z))
+    return refs
+
+
 def _single(name, mom):
     """The port's single-device run: (evals, data_mom, restarts, evecs)."""
     argv = _argv(name, mom)
@@ -208,6 +277,8 @@ def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("mesh")
     mom = d / "moms.txt"
     mom.write_text("".join(f"{p[0]} {p[1]} {p[2]}\n" for p in MOMENTA))
+    (d / "moms_mg.txt").write_text("".join(f"{p[0]} {p[1]} {p[2]}\n"
+                                           for p in MG_MOMENTA))
     env = dict(os.environ, MUGIQ_LOG_LEVEL="WARNING", OMP_NUM_THREADS="1")
     procs = {}
     for mesh, jobs in LAUNCHES.items():
@@ -217,8 +288,7 @@ def runs(tmp_path_factory):
         spec.write_text(json.dumps([
             {"name": n, "mode": mode,
              "argv": _argv(n, mom) + ["--mesh", *mesh.split()]
-             + (["--eig-vec-outfile", str(_evec_file(out))] if n == "pc"
-                else [])}
+             + _extra_argv(out, n)}
             for n, mode in jobs]))
         n = int(np.prod([int(v) for v in mesh.split()]))
         log = open(out / "log.txt", "w")
@@ -234,7 +304,8 @@ def runs(tmp_path_factory):
                                                       "pc-clover", "block",
                                                       "arnoldi", "loop-bf16",
                                                       "pc-bf16")},
-                "extra": _single_extra(mom, d)}
+                "extra": _single_extra(mom, d),
+                "mg": _single_mg(mom, d)}
     finally:
         for p, _, _, log in procs.values():
             try:
@@ -246,11 +317,14 @@ def runs(tmp_path_factory):
     got = {}
     for mesh, (p, out, n, _) in procs.items():
         assert p.returncode == 0, (out / "log.txt").read_text()[-4000:]
-        for name, _ in LAUNCHES[mesh]:
+        for name, mode in LAUNCHES[mesh]:
             got[(mesh, name)] = [dict(np.load(out / f"{name}.rank{r}.npz"))
                                  for r in range(n)]
             if name == "pc":
                 got[(mesh, name)][0]["file"] = _evec_file(out)
+            if mode == "loop-mg" and name != "loop-mg-load":
+                with np.load(_mg_file(out, name)) as z:
+                    got[(mesh, name)][0]["mg_file"] = dict(z)
     return got, refs
 
 
@@ -541,9 +615,132 @@ def test_pc_with_odd_local_extents_raises():
                                  mesh=mesh)
 
 
-def test_mesh_with_mg_raises():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        cli_loop.run(LOOP + ["--mesh", "1", "1", "--mugiq-use-mg", "yes"])
+@pytest.mark.parametrize("run", MG_RUNS, ids=lambda r: f"{r[1]}-{r[0]}")
+def test_mesh_mg_matches_port_single_device(runs, run):
+    """The MG loop on every rank: converged, the same restarts on every
+    rank, the single-device coarse eigenvalues within 1e-5 relative and
+    data_mom within 1e-4 of its max."""
+    got, refs = runs
+    ref, _ = refs["mg"][run[1]]
+    assert ref.converged and ref.data_mom.shape == (2, 2, 16, 8)
+    for r, res in enumerate(got[run]):
+        assert bool(res["converged"]), r
+        assert int(res["n_restarts"]) == int(got[run][0]["n_restarts"]), r
+        np.testing.assert_allclose(res["evals"], ref.evals, rtol=1e-5,
+                                   err_msg=f"rank {r}")
+        np.testing.assert_allclose(res["data_mom"], ref.data_mom,
+                                   atol=1e-4 * np.abs(ref.data_mom).max(),
+                                   err_msg=f"rank {r}")
+
+
+@pytest.mark.parametrize("level", [1, 2])
+@pytest.mark.parametrize("run", MG_RUNS, ids=lambda r: f"{r[1]}-{r[0]}")
+def test_mesh_mg_checkpoint_is_the_single_device_file(runs, run, level):
+    """--mg-vec-outfile under a mesh: the primary writes the global file
+    one device writes.  Level 1: the level-1 stencils (the ones every rank
+    holds after the all-gather) within 2e-5 of the single-device ones,
+    V0 within 2e-6, and each rank's block of it (local_coarse_block, the
+    block the rank's transfer holds) of the rank's coarse extents.
+    Level 2: the same keys, geometries and shapes, V1 and the level-2
+    stencils within 2e-5."""
+    from mugiq_tpu_torch.parallel.mesh import LatticeMesh
+
+    got, refs = runs
+    _, want = refs["mg"][run[1]]
+    z = got[run][0]["mg_file"]
+    if level == 2:
+        assert sorted(z) == sorted(want)
+        for k in want:
+            assert z[k].shape == want[k].shape, k
+            if k.startswith(("geom", "nsnc", "n_level")):
+                np.testing.assert_array_equal(z[k], want[k], err_msg=k)
+        for k in ["V1", "D1"] + [f"{y}1_{mu}" for y in ("Yp", "Ym")
+                                 for mu in range(4)]:
+            np.testing.assert_allclose(z[k], want[k], atol=STENCIL_ATOL,
+                                       err_msg=k)
+        return
+    for k in ["D0"] + [f"{y}0_{mu}" for y in ("Yp", "Ym") for mu in range(4)]:
+        np.testing.assert_allclose(z[k], want[k], atol=STENCIL_ATOL,
+                                   err_msg=k)
+    np.testing.assert_allclose(z["V0"], want["V0"], atol=V0_ATOL)
+    shape = tuple(int(v) for v in run[0].split())
+    for r in range(len(got[run])):
+        m = LatticeMesh(shape, DIMS, rank=r, device="cpu")
+        block = m.local_coarse_block(z["V0"])
+        # coarse (Tc, Zc, Yc) = (4, 2, 2), split as the lattice
+        assert block.shape[:3] == (4 // shape[0], 2 // shape[1],
+                                   2 // (shape + (1,))[2]), r
+        np.testing.assert_allclose(block, m.local_coarse_block(want["V0"]),
+                                   atol=V0_ATOL, err_msg=f"rank {r}")
+
+
+def test_mesh_mg_checkpoint_reloads_bit_for_bit(runs):
+    """The 2 1 launch's second MG run loads the first's file
+    (--mg-vec-infile: no smoothing, no probes) and reproduces its
+    eigenvalues and data_mom on every rank bit for bit."""
+    got, _ = runs
+    built, loaded = got[("2 1", "loop-mg")], got[("2 1", "loop-mg-load")]
+    for r, (a, b) in enumerate(zip(built, loaded)):
+        assert int(a["n_restarts"]) == int(b["n_restarts"]), r
+        np.testing.assert_array_equal(b["evals"], a["evals"])
+        np.testing.assert_array_equal(b["data_mom"], a["data_mom"])
+
+
+def test_one_rank_mesh_mg_equals_single_device(runs, tmp_path, caplog):
+    """The MG loop over --mesh 1 1 in one process: built on the one-rank
+    sharded operator, the single device's restarts, eigenvalues within
+    1e-6 and data_mom within 1e-5 of max (K7a's twin rounds apart from
+    K1's, ~5e-7 of max |M psi|, through the smoothing); loaded from the
+    single-device hierarchy file, exactly the single-device run (the
+    replicated coarse eigensolve, the prolongation and the sharded
+    measurement); --loop-coarse-ulocal yes logged as a no-op."""
+    import logging
+
+    ref, hierarchy = runs[1]["mg"]["loop-mg"]
+    (tmp_path / "moms_mg.txt").write_text(
+        "".join(f"{p[0]} {p[1]} {p[2]}\n" for p in MG_MOMENTA))
+    argv = _argv("loop-mg", tmp_path / "moms.txt") + ["--mesh", "1", "1"]
+    with caplog.at_level(logging.INFO, logger="mugiq_tpu_torch"):
+        built = cli_loop.run(argv + ["--loop-coarse-ulocal", "yes"])
+    assert "the production loop ignores it" in caplog.text
+    assert built.n_restarts == ref.n_restarts
+    np.testing.assert_allclose(built.evals, ref.evals, rtol=1e-6)
+    np.testing.assert_allclose(built.data_mom, ref.data_mom,
+                               atol=1e-5 * np.abs(ref.data_mom).max())
+    np.savez(tmp_path / "single.npz", **hierarchy)
+    loaded = cli_loop.run(argv + ["--mg-vec-infile",
+                                  str(tmp_path / "single.npz")])
+    assert loaded.n_restarts == ref.n_restarts
+    np.testing.assert_array_equal(loaded.evals, ref.evals)
+    np.testing.assert_array_equal(loaded.data_mom, ref.data_mom)
+
+
+@pytest.mark.parametrize("shape, block, axis, local", [
+    ((2, 1), (2, 2, 2, 8), "t", 4), ((1, 2), (2, 2, 4, 2), "z", 2),
+    ((1, 1, 2), (2, 4, 2, 2), "y", 2)])
+def test_mg_block_straddling_ranks_raises(shape, block, axis, local):
+    """Under a mesh an MG block must lie inside one rank's block: a block
+    that divides the global extent but not the local one raises before
+    any exchange, naming the mesh axis, the local extent and the block;
+    the block of the MG jobs (2^4) passes on the same mesh."""
+    import re
+
+    from mugiq_tpu_torch.mg.kernel_mg import check_blocks_divide
+    from mugiq_tpu_torch.params import (EigParam, GaugeParam, InvertParam,
+                                        LoopParam, MGParam)
+    from mugiq_tpu_torch.parallel.mesh import LatticeMesh
+    from mugiq_tpu_torch.production import compute_loop_production
+
+    mesh = LatticeMesh(shape, DIMS, rank=0, device="cpu")
+    match = (re.escape(str(block)) + f".*mesh axis {axis} the local extent "
+             f"{local} .*block's {block['xyzt'.index(axis)]}")
+    with pytest.raises(ValueError, match=match):
+        compute_loop_production(
+            _gauge(), GaugeParam(dims=DIMS), InvertParam(kappa=0.12),
+            EigParam(n_ev=2, n_kr=8), LoopParam(), use_mg=True,
+            mg=MGParam(n_level=2, geo_block_size=[block], n_vec=[4]),
+            mesh=mesh, device="cpu")
+    check_blocks_divide(mesh, (2, 2, 2, 2))
 
 
 @pytest.mark.parametrize("shape, match", [
@@ -640,3 +837,39 @@ def test_mesh_bf16_matches_jax_production(runs):
                                    rtol=3e-2, err_msg=f"rank {r}")
         assert res["data_mom"].shape == np.asarray(ref.data_mom).shape
         assert np.all(np.isfinite(res["data_mom"]))
+
+
+@pytest.mark.slow
+def test_mesh_mg_matches_jax_production(runs):
+    """JAX compute_loop_production(use_mg=True) on a (t 4, z 2) mesh of the
+    8 virtual devices (its sharded smoothing, probes and measurement;
+    interpret-mode Pallas), the Wilson MG recipe: every rank of the port's
+    2 1 and 2 2 2 runs within JAX's bounds for its sharded MG loop against
+    its unsharded one (tests/test_rc_mg.py:160-189): eigenvalues rtol
+    1e-4, data_mom rtol 5e-3, atol 2e-3."""
+    import jax
+    from jax.sharding import Mesh
+
+    from mugiq_tpu import params as jp
+    from mugiq_tpu.production import compute_loop_production
+
+    mesh = Mesh(np.asarray(jax.devices()[:8]).reshape(4, 2), ("t", "z"))
+    ref = compute_loop_production(
+        _gauge(), jp.GaugeParam(dims=DIMS), jp.InvertParam(kappa=0.12),
+        jp.EigParam(n_ev=4, n_kr=16, tol=1e-6, max_restarts=200),
+        jp.LoopParam(momenta=MG_MOMENTA, do_nonlocal=True,
+                     disp_entries=["+z:1"]),
+        use_mg=True, mg=jp.MGParam(n_level=3,
+                                   geo_block_size=[(2, 2, 2, 2),
+                                                   (1, 1, 1, 2)],
+                                   n_vec=[4, 4], setup_iters=6),
+        mesh=mesh)
+    assert ref.converged
+    got, _ = runs
+    for run in [r for r in MG_RUNS if r[1] == "loop-mg"]:
+        for r, res in enumerate(got[run]):
+            np.testing.assert_allclose(res["evals"], np.asarray(ref.evals),
+                                       rtol=1e-4, err_msg=f"{run} rank {r}")
+            np.testing.assert_allclose(res["data_mom"],
+                                       np.asarray(ref.data_mom), rtol=5e-3,
+                                       atol=2e-3, err_msg=f"{run} rank {r}")

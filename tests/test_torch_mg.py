@@ -193,15 +193,11 @@ def test_mg_cli_on_cpu_with_checkpoint(tmp_path):
     np.testing.assert_array_equal(loaded.data_mom, built.data_mom)
 
 
-# --loop-coarse-ulocal yes with --production is a logged no-op (as in the
-# JAX CLI; test_torch_coarse_loop.py): with --mesh the MG loop still
-# raises (item 15)
-@pytest.mark.parametrize("flags", [["--loop-coarse-ulocal", "yes", "--mesh",
-                                    "1", "1"],
-                                   ["--mg-block-size", "2", "2", "2"]])
+# the MG loop under --mesh (with --loop-coarse-ulocal yes, a logged no-op
+# with --production): tests/test_torch_mesh.py
+@pytest.mark.parametrize("flags", [["--mg-block-size", "2", "2", "2"]])
 def test_mg_cli_rejects(flags):
     argv = ["--dims", "4", "4", "4", "4", "--mugiq-use-mg", "yes",
             "--production", "--device", "cpu"] + flags
-    with pytest.raises((NotImplementedError, ValueError),
-                       match="ROADMAP|4 ints per level"):
+    with pytest.raises(ValueError, match="4 ints per level"):
         cli_loop.run(argv)

@@ -173,8 +173,7 @@ def test_nonnormal_operator_errors_match_jax(kw, match):
                                  basis_precision=bp, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [
-    dict(use_mg=True, mesh=object()), dict(use_mg=True, mg_setup="host")])
+@pytest.mark.parametrize("kw", [dict(use_mg=True, mg_setup="host")])
 def test_loop_options_outside_slice_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compute_loop_production(_gauge(), GaugeParam(dims=DIMS),

@@ -3,8 +3,10 @@
     python -m torch.distributed.run --standalone --nproc-per-node N \\
         tests/torch_mesh_worker.py OUTDIR JOBS.json
 
-JOBS.json lists {"name", "mode" ("loop", "eig", "arnoldi", "loop-pos" or
-"stoch"), "argv"} jobs whose CLI flags share one --mesh ("arnoldi": the
+JOBS.json lists {"name", "mode" ("loop", "eig", "arnoldi", "loop-pos",
+"stoch" or "loop-mg"), "argv"} jobs whose CLI flags share one --mesh
+("loop-mg": the MG-deflated loop CLI, its hierarchy written or read by
+its own --mg-vec-outfile or --mg-vec-infile; "arnoldi": the
 eigensolve CLI's flags, solved for EigOperator.M by
 production.compute_evecs_production, which no CLI reaches; "loop-pos":
 the loop CLI's flags, run by production.compute_loop_production with
@@ -205,6 +207,14 @@ def main():
                 got = {"data_pos": res.data_pos, "data_mom": res.data_mom,
                        "n_restarts": res.n_restarts}
             np.savez(out / f"{job['name']}.rank{mesh.rank}.npz", **got)
+            continue
+        if job["mode"] == "loop-mg":
+            res = cli_loop.run(job["argv"])
+            rank = torch.distributed.get_rank()
+            np.savez(out / f"{job['name']}.rank{rank}.npz",
+                     evals=res.evals, resids=res.resids,
+                     data_mom=res.data_mom, n_restarts=res.n_restarts,
+                     converged=res.converged)
             continue
         cli = cli_loop if job["mode"] == "loop" else cli_eig
         err, same, hop_err, op_dtype, mesh = op_check(cli, job["argv"])
